@@ -7,8 +7,11 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      and power limit from nvidia-smi; TF32 off for the f32 phases;
   2. build: nvcc compiles pvpuformer_tpu_torch/csrc/*.cu into build/kernels/;
   3. kernels vs their plain PyTorch versions on the card, at the ViT-B@448
-     click-path shapes, with the error beside its tolerance and the kernel
-     time beside the plain time;
+     click- and prompt-path shapes (and the CC kernels at a snake that needs
+     more than 8 rounds, > 256 components, a ragged shape and an empty
+     mask), with the error beside its tolerance, the kernel time beside the
+     plain time, the bound and, for attention, the time of
+     torch's scaled_dot_product_attention (timed only, never used);
   4. model parity: a 5-click f32 session at a tiny config on CUDA (kernels)
      vs on the CPU (plain versions), same port weights: identical clicks,
      IoU within 1e-5;
@@ -16,7 +19,23 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      sessions through `Predictor`, then 3 clicks with attn_impl="flash";
      IoUs finite in [0, 1], click counts, and every kernel's launch count
      equal to the wrapper calls the path makes;
-then one JSON line per kernel summary and, last, {"ok": true, "device": ...}.
+  6. prompt parity: tiny f32 box / scribble sessions, all four (prompt_mode,
+     as_multi_prompts) variants with deterministic prompts, CUDA vs the CPU:
+     identical clicks, IoU within 1e-5;
+  7. the prompt path: ViT-B@448 bf16 box / scribble sessions through
+     `Predictor`, 5 clicks for each of the four variants (random prompts):
+     IoUs finite in [0, 1] and every kernel's launch count equal to the
+     wrapper calls the path makes, counted per variant;
+then one JSON line of kernel summaries, the card's name and power limit,
+and, last, {"ok": true, "device": ...}.
+
+    python3 chip_smoke.py --profile
+
+instead runs phases 1-2 and then profiles ViT-B@448 bf16 clicks of the
+click path and of the four prompt variants with torch.profiler (CPU + CUDA
+activities): device time per click by kernel group, launches per click,
+the device busy share under the profiler, and the host-clock median of
+unprofiled clicks beside it.
 """
 from __future__ import annotations
 
@@ -30,6 +49,22 @@ import numpy as np
 
 CLICKS = 20
 FLASH_CLICKS = 3
+PROMPT_CLICKS = 5
+# (prompt_mode, as_multi_prompts) -> kernel calls per click at ViT-B@448
+# with flip: (cc_labels, component_max, minplus_rows). synth_boxes and
+# synth_scribbles each run one connected_regions_mask_batch (one call of
+# each CC kernel); the multi-prompt protocol's extra error click adds one
+# min-plus call to the oracle click's; the points-rewrite scribble runs one
+# connected_regions_mask_batch, the box rewrite none.
+PROMPT_VARIANTS = {(1, True): (1, 1, 2), (2, True): (2, 2, 2),
+                   (1, False): (0, 0, 1), (2, False): (1, 1, 1)}
+
+# NVIDIA H100 SXM datasheet peaks: dense bf16 tensor
+# cores, f32 on the CUDA cores (the int32 max / select work of the CC
+# kernels and the min-plus adds are counted at this rate), HBM3 bytes/s
+PEAK_BF16 = 989e12
+PEAK_CUDA_CORE = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def _log(msg: str) -> None:
@@ -48,6 +83,13 @@ def _time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(ops: float, rate: float, nbytes: float):
+    """The least time (ms) the card could take: the larger of the operations
+    over their peak rate and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def _compare(name, kernel_fn, plain_fn, atol, rtol, exact=False):
@@ -82,18 +124,24 @@ def _compare(name, kernel_fn, plain_fn, atol, rtol, exact=False):
 def phase_kernels(dev):
     """Phase 3: every kernel vs its plain version at the main-path shapes."""
     import torch
+    import torch.nn.functional as F
     from pvpuformer_tpu_torch.ops import attention as fa
-    from pvpuformer_tpu_torch.ops import edt_minplus, fused_attention as fu
+    from pvpuformer_tpu_torch.ops import cc, edt_minplus, fused_attention as fu
     from pvpuformer_tpu_torch.ops import fused_mlp
     from pvpuformer_tpu_torch import nn
 
     g = torch.Generator().manual_seed(0)
-    err, times = {}, {}     # name -> max error over all cases; main-shape times
+    # name -> max error over all cases; (ms, plain ms, bound ms, bound by,
+    # library ms) at the summary shape
+    err, times = {}, {}
 
-    def record(name, r, main_shape):
+    def record(name, r, main_shape, bound, library_ms=None):
         err[name] = max(err.get(name, 0.0), r[0])
+        _log(f"    bound {bound[0] * 1e3:.2f} us ({bound[1]})"
+             + ("" if library_ms is None else
+                f"  library (SDPA) {library_ms:.4f} ms"))
         if main_shape:
-            times[name] = r[1:]
+            times[name] = (*r[1:], *bound, library_ms)
 
     # (B, N, H, D): window blocks 8 windows x 12 heads, global 2 x 12 heads;
     # the summary line reports times at the global shape in bf16. bf16 limits
@@ -104,6 +152,14 @@ def phase_kernels(dev):
         for dt in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(shape, generator=g).to(dev, dt)
                        for _ in range(3))
+            b, n, h, d = shape
+            elt = q.element_size()
+            bound = _bound(4.0 * b * h * n * n * d,
+                           PEAK_BF16 if dt == torch.bfloat16 else
+                           PEAK_CUDA_CORE, 4.0 * b * h * n * d * elt)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=1.0 / 8.0))
             for name, kern, plain in (
                     ("fused_attention", fu.fused_attention,
                      fu.fused_attention_plain),
@@ -114,12 +170,15 @@ def phase_kernels(dev):
                 r = _compare(f"{name} {label} {tuple(shape)} {dt}",
                              lambda: kern(q, k, v),
                              lambda: plain(q, k, v, 1.0 / 8.0), *tol)
-                record(name, r, label == "global" and dt == torch.bfloat16)
+                record(name, r, label == "global" and dt == torch.bfloat16,
+                       bound, lib_ms)
     for shape in ((896, 448), (74, 53), (64, 1000)):
         f = torch.randint(0, 300, shape, generator=g).float().square().to(dev)
         r = _compare(f"minplus_rows {shape}", lambda: edt_minplus.minplus_rows(f),
                      lambda: edt_minplus.minplus_rows_plain(f), 0, 0, exact=True)
-        record("minplus_rows", r, shape == (896, 448))
+        record("minplus_rows", r, shape == (896, 448),
+               _bound(2.0 * shape[0] * shape[1] ** 2, PEAK_CUDA_CORE,
+                      8.0 * shape[0] * shape[1]))
     # operands at the JAX kernel test's scale (weights and biases N(0, 0.05)):
     # the MLP term is then ~3x the residual, so dropping b1, b2, beta or one
     # 32-deep weight chunk breaks the tolerance (PERF.md, Findings)
@@ -138,8 +197,58 @@ def phase_kernels(dev):
         lambda: fused_mlp.fused_ln_mlp(x, ln, mlp),
         lambda: fused_mlp.fused_ln_mlp_plain(
             x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w, mlp.fc2.b,
-            1e-6), 0.06, 0.05), True)
+            1e-6), 0.06, 0.05), True,
+        _bound(4.0 * m * d * hid, PEAK_BF16,
+               2.0 * (2 * m * d + 2 * d * hid + hid + d) + 4.0 * 2 * d))
+    # the CC kernels: bit-exact at the prompt path's (2, 448, 448) masks
+    # (the error / gt masks of the flip batch) and at the edge cases
+    iters = 8
+    for label, masks in cc_masks().items():
+        mt = torch.from_numpy(masks).to(dev)
+        vals = torch.randint(0, 2 ** 20, masks.shape, dtype=torch.int32,
+                             generator=g).to(dev)
+        px = float(mt.numel())
+        main = label == "path"
+        record("cc_labels", _compare(
+            f"cc_labels {label} {tuple(masks.shape)}",
+            lambda: cc.cc_labels(mt, iters),
+            lambda: cc.cc_labels_plain(mt, iters), 0, 0, exact=True), main,
+            # the Pallas CostEstimate's 60 ops per pixel per round, unpadded
+            _bound(iters * 60 * px, PEAK_CUDA_CORE, px * (1 + 4)))
+        record("component_max", _compare(
+            f"component_max {label} {tuple(masks.shape)}",
+            lambda: cc.component_max(mt, vals, iters),
+            lambda: cc.component_max_plain(mt, vals, iters), 0, 0,
+            exact=True), main,
+            _bound(iters * 60 * px, PEAK_CUDA_CORE, px * (1 + 4 + 4)))
     return {name: (err[name], *times[name]) for name in err}
+
+
+def cc_masks():
+    """The CC kernels' test masks: random blobs at the prompt path's flip
+    batch (2, 448, 448) (like tests/test_engine.py:blobby_mask); a snake
+    with 10 direction reversals (> 8 flood rounds, so labels stay partial);
+    1345 components; a ragged (3, 74, 53); an empty mask."""
+    def blobs(seed, b, h, w, n):
+        r = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:h, 0:w]
+        m = np.zeros((b, h, w), bool)
+        for i in range(b):
+            for _ in range(n):
+                cy, cx = r.integers(0, h), r.integers(0, w)
+                rad = r.integers(2, max(3, h // 8))
+                m[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rad ** 2
+        return m
+    snake = np.zeros((1, 40, 40), bool)
+    for i in range(0, 40, 4):
+        snake[0, i, 1:39] = True
+        snake[0, i:i + 4, 38 if (i // 4) % 2 == 0 else 1] = True
+    speckles = np.zeros((1, 64, 96), bool)
+    speckles[0, 1:5, 1:5] = True
+    speckles[0, 8::2, 1::2] = True
+    return {"path": blobs(0, 2, 448, 448, 12), "snake": snake,
+            "speckles": speckles, "ragged": blobs(1, 3, 74, 53, 6),
+            "empty": np.zeros((2, 448, 448), bool)}
 
 
 def tiny_config():
@@ -174,7 +283,7 @@ def phase_parity(dev):
     gt[14:50, 18:46] = 1.0
     out = {}
     for where in ("cpu", dev):
-        model = init_vpu(cfg.model, torch.Generator().manual_seed(1))
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
         pred = Predictor(model, cfg, device=where)
         pred.set_input(image, gt)
         out[str(where)] = (pred.run_clicks(5), pred.clicks)
@@ -195,11 +304,6 @@ def phase_main(dev, card: str):
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
                                                          PredictorConfig)
     from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
-    from pvpuformer_tpu_torch.ops.attention import flash_attention
-    from pvpuformer_tpu_torch.ops.edt_minplus import minplus_rows
-    from pvpuformer_tpu_torch.ops.fused_attention import fused_attention
-    from pvpuformer_tpu_torch.ops.fused_mlp import fused_ln_mlp
-
     mcfg = vpu_base_config(dtype=torch.bfloat16)
     model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
     pcfg = PredictorConfig(model=mcfg, target_size=(448, 448), with_flip=True)
@@ -209,7 +313,7 @@ def phase_main(dev, card: str):
     gt[96:352, 128:320] = 1.0
     pred = Predictor(model, pcfg, device=dev)
     depth = mcfg.backbone.depth
-    wrappers = (fused_attention, flash_attention, minplus_rows, fused_ln_mlp)
+    wrappers = _wrappers()
 
     def check_session(ious, n):
         if not (np.isfinite(ious).all() and ious.shape == (n,)
@@ -235,7 +339,8 @@ def phase_main(dev, card: str):
     counts = {w.__name__: w.launches for w in wrappers}
     clicks = 2 * CLICKS
     want = {"fused_attention": depth * clicks, "flash_attention": 0,
-            "minplus_rows": clicks, "fused_ln_mlp": depth * clicks}
+            "minplus_rows": clicks, "fused_ln_mlp": depth * clicks,
+            "cc_labels": 0, "component_max": 0}
     flash_pred = Predictor(model, dataclasses.replace(pcfg, model=mcfg.replace(
         backbone=dataclasses.replace(mcfg.backbone, attn_impl="flash"))),
         device=dev)
@@ -256,7 +361,200 @@ def phase_main(dev, card: str):
     if total != want_total or counts != want:
         raise AssertionError("a kernel was launched a different number of "
                              "times than the main path calls its wrapper")
-    return total, float(np.median(per_click))
+    return total, model
+
+
+def _wrappers():
+    from pvpuformer_tpu_torch.ops.attention import flash_attention
+    from pvpuformer_tpu_torch.ops.cc import cc_labels, component_max
+    from pvpuformer_tpu_torch.ops.edt_minplus import minplus_rows
+    from pvpuformer_tpu_torch.ops.fused_attention import fused_attention
+    from pvpuformer_tpu_torch.ops.fused_mlp import fused_ln_mlp
+    return (fused_attention, flash_attention, minplus_rows, fused_ln_mlp,
+            cc_labels, component_max)
+
+
+def phase_prompt_parity(dev):
+    """Phase 6: tiny f32 box / scribble sessions, CUDA vs the CPU."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+
+    r = np.random.default_rng(7)
+    image = (r.uniform(size=(60, 90, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((60, 90), np.float32)
+    gt[14:50, 18:46] = 1.0
+    for mode, multi in PROMPT_VARIANTS:
+        cfg = PredictorConfig(model=tiny_config(), target_size=(64, 64),
+                              min_crop_size=32, prompt_mode=mode,
+                              as_multi_prompts=multi,
+                              deterministic_prompts=True)
+        out = []
+        for where in ("cpu", dev):
+            model = init_vpu(cfg.model, torch.Generator().manual_seed(1),
+                             "cpu")
+            pred = Predictor(model, cfg, device=where)
+            pred.set_input(image, gt)
+            out.append((pred.run_clicks(5), pred.clicks))
+        (iou_c, clk_c), (iou_g, clk_g) = out
+        err = float(np.abs(iou_c - iou_g).max())
+        same = np.array_equal(clk_c, clk_g)
+        _log(f"  mode {mode} {'multi' if multi else 'points'}: clicks "
+             f"{'identical' if same else 'DIFFER'}, max |dIoU|={err:.2e} "
+             f"(tol 1e-5) {'ok' if same and err <= 1e-5 else 'FAIL'}")
+        if not (same and err <= 1e-5):
+            raise AssertionError(f"prompt parity mode {mode} multi {multi}: "
+                                 f"cpu {iou_c} {clk_c}\ncuda {iou_g} {clk_g}")
+
+
+def phase_prompts(dev, card: str, model):
+    """Phase 7: ViT-B@448 bf16 box / scribble sessions through the kernels,
+    the launch counts read per variant."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         _prompt_noise)
+
+    mcfg = model.cfg
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    depth = mcfg.backbone.depth
+    wrappers = _wrappers()
+    total = {w.__name__: 0 for w in wrappers}
+    medians = {}
+    for (mode, multi), (n_cc, n_cm, n_mp) in PROMPT_VARIANTS.items():
+        pred = Predictor(model, PredictorConfig(
+            model=mcfg, target_size=(448, 448), with_flip=True,
+            prompt_mode=mode, as_multi_prompts=multi), device=dev)
+        pred.set_input(image, gt)
+        noise_ms = []                 # the click's random draws, host side
+        for _ in range(5):
+            t = time.perf_counter()
+            _prompt_noise(pred.cfg, torch.Generator().manual_seed(0), dev)
+            noise_ms.append((time.perf_counter() - t) * 1e3)
+        for w in wrappers:
+            w.launches = 0
+        per_click, ious = [], []
+        for _ in range(PROMPT_CLICKS):
+            t = time.perf_counter()
+            ious.append(pred.next_click())             # float(iou) syncs
+            per_click.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in wrappers}
+        c = PROMPT_CLICKS
+        want = {"fused_attention": depth * c, "flash_attention": 0,
+                "minplus_rows": n_mp * c, "fused_ln_mlp": depth * c,
+                "cc_labels": n_cc * c, "component_max": n_cm * c}
+        ious = np.asarray(ious)
+        name = f"mode {mode} {'multi' if multi else 'points'}"
+        medians[name] = float(np.median(per_click))
+        _log(f"  {name}: IoUs {np.round(ious, 4).tolist()}, median "
+             f"{medians[name]:.3f} ms/click (first {per_click[0]:.1f} ms; "
+             f"noise draw {np.median(noise_ms):.3f} ms on the host) "
+             f"({card}); launches {counts}")
+        if not (np.isfinite(ious).all() and (ious >= 0).all()
+                and (ious <= 1).all()):
+            raise AssertionError(f"{name}: bad IoU curve {ious}")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, the path calls "
+                                 f"the wrappers {want} times")
+        for k, v in counts.items():
+            total[k] += v
+        _no_host_sync(pred)
+    # the click path (prompt_mode 0) too
+    pred = Predictor(model, PredictorConfig(model=mcfg, target_size=(448, 448),
+                                            with_flip=True), device=dev)
+    pred.set_input(image, gt)
+    pred.next_click()
+    _no_host_sync(pred)
+    _log("  one more click of each variant and of the click path ran with no "
+         "host sync (torch.cuda.set_sync_debug_mode('error'))")
+    return total, medians
+
+
+def _no_host_sync(pred):
+    """One more click with torch's sync debug mode raising on any
+    synchronizing call."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import click_step
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        click_step(pred.model, pred.cfg, pred.state, pred.gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+# kernel-name substrings -> group, first match wins (profile_paths)
+KERNEL_GROUPS = (("cc (run_max_pass)", "run_max_pass"),
+                 ("attention kernel", "attention"),
+                 ("LN+MLP kernel", "fc1_gelu"), ("LN+MLP kernel", "fc2_resid"),
+                 ("min-plus kernel", "minplus"),
+                 ("cuBLAS / cuDNN products", "gemm"),
+                 ("cuBLAS / cuDNN products", "xmma"),
+                 ("cuBLAS / cuDNN products", "cutlass"),
+                 ("cuBLAS / cuDNN products", "conv"),
+                 ("copies / casts", "copy"), ("copies / casts", "Memcpy"),
+                 ("copies / casts", "Memset"))
+PROFILE_CLICKS = 5
+
+
+def profile_paths(dev, card: str):
+    """ViT-B@448 bf16: where a click's device time goes, per path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+
+    mcfg = vpu_base_config(dtype=torch.bfloat16)
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    out = {}
+    for mode, multi in [(0, True)] + list(PROMPT_VARIANTS):
+        name = ("click path" if mode == 0 else
+                f"mode {mode} {'multi' if multi else 'points'}")
+        pred = Predictor(model, PredictorConfig(
+            model=mcfg, target_size=(448, 448), with_flip=True,
+            prompt_mode=mode, as_multi_prompts=multi), device=dev)
+        pred.set_input(image, gt)
+        walls = []
+        for _ in range(3 + PROFILE_CLICKS):     # 3 warm-up clicks
+            t = time.perf_counter()
+            pred.next_click()
+            walls.append((time.perf_counter() - t) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(PROFILE_CLICKS):
+                pred.next_click()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / PROFILE_CLICKS
+        groups, launches, device = {}, 0, 0.0
+        for e in prof.key_averages():
+            us = e.self_device_time_total
+            if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+                continue
+            g = next((grp for grp, key in KERNEL_GROUPS if key in e.key),
+                     "other elementwise / reductions")
+            groups[g] = groups.get(g, 0.0) + us / 1e3 / PROFILE_CLICKS
+            launches += e.count
+            device += us / 1e3 / PROFILE_CLICKS
+        out[name] = {
+            "unprofiled_median_ms": float(np.median(walls[3:])),
+            "profiled_wall_ms": wall, "device_ms": device,
+            "busy_share": device / wall,
+            "launches_per_click": launches / PROFILE_CLICKS,
+            "device_ms_by_group": dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1]))}
+        _log(f"  {name}: {json.dumps(out[name])} ({card})")
+    return out
 
 
 def main() -> int:
@@ -271,21 +569,31 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _log(f"[1/5] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/7] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda}")
 
     from pvpuformer_tpu_torch.ops import _build
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/5] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/7] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    if "--profile" in sys.argv[1:]:
+        _log("[profile] ViT-B@448 bf16 clicks under torch.profiler")
+        print(json.dumps({"profile": profile_paths(dev, smi), "card": smi}))
+        return 0
 
-    _log("[3/5] kernels vs plain versions")
+    _log("[3/7] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/5] model parity, tiny config f32")
+    _log("[4/7] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/5] main path: ViT-B@448 bf16 click sessions")
-    launches, _ = phase_main(dev, smi)
+    _log("[5/7] main path: ViT-B@448 bf16 click sessions")
+    launches, model = phase_main(dev, smi)
+    _log("[6/7] prompt parity, tiny config f32, four prompt variants")
+    phase_prompt_parity(dev)
+    _log("[7/7] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    prompt_launches, _ = phase_prompts(dev, smi, model)
+    for name in ("cc_labels", "component_max"):        # this slice's path
+        launches[name] = prompt_launches[name]
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",
@@ -296,12 +604,19 @@ def main() -> int:
                          "pvpuformer_tpu/ops/edt_pallas.py:28"),
         "fused_ln_mlp": ("pvpuformer_tpu_torch/csrc/fused_mlp.cu",
                          "pvpuformer_tpu/ops/fused_mlp.py:37"),
+        "cc_labels": ("pvpuformer_tpu_torch/csrc/cc.cu",
+                      "pvpuformer_tpu/ops/cc_pallas.py:86"),
+        "component_max": ("pvpuformer_tpu_torch/csrc/cc.cu",
+                          "pvpuformer_tpu/ops/cc_pallas.py:98"),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": res[name][0], "ms": res[name][1],
-                "plain_ms": res[name][2]}
-               for name, (src, rep) in meta.items()]
+    kernels = []
+    for name, (src, rep) in meta.items():
+        err, ms, plain_ms, bound_ms, bound_by, library_ms = res[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+                        "bound_by": bound_by, "library_ms": library_ms})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,20 +9,32 @@ click runs:
   5. flip-average, sigmoid, paste-back into the canvas, and IoU.
 The ROI, click slots and counters stay on the device, so a click is one
 stream of launches with no host synchronisation; `click_scan` is a Python
-loop over clicks. Click prompts only (prompt_mode 0).
+loop over clicks. `prompt_mode` 1 / 2 add box / scribble prompts
+synthesised on the device from the ROI-cropped gt and error masks, in both
+`as_multi_prompts` protocols; their random draws come from a CPU
+`torch.Generator` (`_prompt_noise`), so a session draws the same noise on
+the CPU and on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..engine.prompt_sim import (_bbox, _first_true,
+                                 connected_regions_mask_batch, synth_boxes,
+                                 synth_scribbles)
 from ..models.vpu import VPUConfig, VPUModel, vpu_forward
-from ..nn import cast_params
-from ..ops.edt import next_click_from_error
+from ..nn import cast_params, resolve_device
+from ..ops.edt import next_click_from_error, squared_edt_pair
 from ..ops.resize import roi_crop_resize, roi_paste_back
+
+SCRIBBLE_CTRL = 10       # synth_scribbles' control points (prompt_sim.py:470)
+SCRIBBLE_POINTS = 7      # cal_scribble_inference's num_p (trainer.py:921)
+BOX_OFFSET = 10          # cal_box_inference's set_offset (trainer.py:920)
+NOISE_SEED = 17          # the JAX predictor's key(17) (predictor.py:491)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +83,9 @@ class SessionState(NamedTuple):
 
 def init_session(image: np.ndarray, gt_mask: np.ndarray, num_max_points: int,
                  canvas_hw: Tuple[int, int], device=None) -> SessionState:
-    """image (H, W, 3) uint8/float; gt_mask (H, W) with {0, 1, -1}."""
+    """image (H, W, 3) uint8/float; gt_mask (H, W) with {0, 1, -1}. The
+    state lies on `device` (None: the card; device="cpu" for the CPU)."""
+    device = resolve_device(device)
     h, w = image.shape[:2]
     hc, wc = canvas_hw
     img = np.zeros((1, hc, wc, 3), np.float32)
@@ -96,18 +110,6 @@ def init_session(image: np.ndarray, gt_mask: np.ndarray, num_max_points: int,
 # ---------------------------------------------------------------------------
 # ROI machinery (zoom_in.py:156-200, utils/misc.py:36-79)
 # ---------------------------------------------------------------------------
-
-def _first_true(v: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(v.to(torch.uint8))
-
-
-def _bbox_from_mask(mask: torch.Tensor) -> torch.Tensor:
-    h, w = mask.shape
-    rows = mask.any(1)
-    cols = mask.any(0)
-    return torch.stack([_first_true(rows), h - 1 - _first_true(rows.flip(0)),
-                        _first_true(cols), w - 1 - _first_true(cols.flip(0))])
-
 
 def _expand_clamp_bbox(bbox: torch.Tensor, ratio: float, min_size: int,
                        img_h, img_w) -> torch.Tensor:
@@ -162,8 +164,9 @@ def _update_roi(cfg: PredictorConfig, state: SessionState,
     stamped = torch.cat([pred.reshape(-1), pred.new_zeros(1)])
     stamped = stamped.index_fill(0, flat, True)[:-1].reshape(hc, wc)
 
-    obj_roi = _expand_clamp_bbox(_bbox_from_mask(stamped), cfg.expansion_ratio,
-                                 cfg.min_crop_size, state.img_h, state.img_w)
+    obj_roi = _expand_clamp_bbox(torch.stack(_bbox(stamped)),
+                                 cfg.expansion_ratio, cfg.min_crop_size,
+                                 state.img_h, state.img_w)
     zero = torch.zeros((), dtype=torch.int32, device=pred.device)
     full_roi = torch.stack([zero, state.img_h - 1, zero, state.img_w - 1])
     current = torch.where(pred_any, obj_roi, full_roi)
@@ -171,6 +174,260 @@ def _update_roi(cfg: PredictorConfig, state: SessionState,
               | (_bbox_iou(current, state.roi) < cfg.recompute_thresh_iou))
     roi = torch.where(update, current, state.roi)
     return roi, torch.ones((), dtype=torch.bool, device=pred.device)
+
+
+# ---------------------------------------------------------------------------
+# prompt noise: every random draw of a click's prompt synthesis
+# ---------------------------------------------------------------------------
+
+def _gumbel(shape, gen: torch.Generator) -> torch.Tensor:
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=gen).clamp_min(tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Host -> card without a host sync (pinned, non-blocking)."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _prompt_noise(cfg: PredictorConfig, gen: torch.Generator,
+                  device: torch.device) -> Dict[str, torch.Tensor]:
+    """One click's random draws, from the CPU generator `gen`, on `device`.
+    Only what the configuration uses is drawn; `deterministic_prompts` pins
+    every draw but the scribble synthesis (as in JAX):
+      multi-prompt protocol: "click_gumbel" (B, th, tw) for the extra error
+        click; mode 2 "scribble_u" (B, 10) and "scribble_g" (B, 10, tw);
+      points protocol, mode 1: "box_gumbel" (B, th, tw) and "box_offsets"
+        (B, 4) int32 in [-10, 0], [0, 10], [-10, 0], [0, 10]; mode 2
+        "points_bits" (2, B, 7) int64 32-bit draws (see _randint_from_bits)
+        and "points_g" (B, 7, tw)."""
+    b = 2 if cfg.with_flip else 1
+    th, tw = cfg.target_size
+    det = cfg.deterministic_prompts
+    noise = {}
+    if cfg.as_multi_prompts:
+        if not det:
+            noise["click_gumbel"] = _gumbel((b, th, tw), gen)
+        if cfg.prompt_mode == 2:
+            noise["scribble_u"] = torch.rand((b, SCRIBBLE_CTRL), generator=gen)
+            noise["scribble_g"] = _gumbel((b, SCRIBBLE_CTRL, tw), gen)
+    elif not det and cfg.prompt_mode == 1:
+        noise["box_gumbel"] = _gumbel((b, th, tw), gen)
+        neg = torch.tensor([BOX_OFFSET, 0, BOX_OFFSET, 0])
+        noise["box_offsets"] = (torch.randint(0, BOX_OFFSET + 1, (b, 4),
+                                              generator=gen) - neg).int()
+    elif not det:
+        noise["points_bits"] = torch.randint(0, 2 ** 32,
+                                             (2, b, SCRIBBLE_POINTS),
+                                             generator=gen)
+        noise["points_g"] = _gumbel((b, SCRIBBLE_POINTS, tw), gen)
+    return {k: _to_device(v, device) for k, v in noise.items()}
+
+
+def _randint_from_bits(bits: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """jax.random.randint's map (jax/_src/random.py:_randint, int32) from
+    its two 32-bit draws bits = (higher, lower) to [minval, maxval): the
+    integers JAX returns for the same bits, in uint32 arithmetic."""
+    m32 = 0xFFFFFFFF
+    span = torch.where(maxval <= minval, 1, (maxval - minval).long() & m32)
+    mult = torch.full_like(span, 2 ** 16) % span
+    mult = ((mult * mult) & m32) % span
+    off = ((((bits[0] % span) * mult) & m32) + bits[1] % span) & m32
+    return (minval + off % span).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# prompt protocols (get_next_promts / get_next_promts_inference,
+# trainer.py:703-1043), batched over the flip batch
+# ---------------------------------------------------------------------------
+
+def _rows_at(points: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """points[b, at[b]], the index clamped into range as JAX's gather."""
+    bidx = torch.arange(points.shape[0], device=points.device)
+    return points[bidx, at.long().clamp(0, points.shape[1] - 1)]
+
+
+def _set_rows(points: torch.Tensor, at: torch.Tensor,
+              rows: torch.Tensor) -> torch.Tensor:
+    """points.at[b, at[b]].set(rows) (at: (B,) or (B, K)), as a copy; an
+    index outside [0, 2N) is dropped, as JAX's scatter drops it."""
+    b, twon, _ = points.shape
+    ext = torch.cat([points, points.new_zeros(b, 1, 3)], 1)
+    at = at.long()
+    at = torch.where((at >= 0) & (at < twon), at, twon)
+    bidx = torch.arange(b, device=points.device)
+    ext[bidx.view((b,) + (1,) * (at.dim() - 1)).expand_as(at), at] = rows
+    return ext[:, :twon]
+
+
+def _next_order(points: torch.Tensor) -> torch.Tensor:
+    return points[:, :, 2].amax(1).clamp_min(0.0) + 1.0
+
+
+def _append_error_click(pred: torch.Tensor, gt: torch.Tensor,
+                        points: torch.Tensor, n_dyn: torch.Tensor,
+                        gumbel: Optional[torch.Tensor],
+                        pred_thresh: float) -> torch.Tensor:
+    """get_next_promts' click rewrite (trainer.py:735-764) for the PPuE
+    points: per batch item, the exact EDT over the FN / FP error masks (one
+    min-plus launch for the whole batch), one click inside the
+    `dist > max / 2` region (the first row-major pixel when `gumbel` is
+    None, else the Gumbel argmax), written to the first free slot of the
+    dynamic half capacity `n_dyn` (a full half overwrites slot n_dyn - 1)."""
+    b, twon, _ = points.shape
+    n = twon // 2
+    w = pred.shape[-1]
+    gtm = gt > 0.5
+    fn = gtm & (pred < pred_thresh)
+    fp = ~gtm & (pred > pred_thresh)
+    d_fn, d_fp = squared_edt_pair(fn, fp)
+    fn_max = d_fn.amax((1, 2))
+    fp_max = d_fp.amax((1, 2))
+    is_pos = fn_max > fp_max
+    d = torch.where(is_pos[:, None, None], d_fn, d_fp)
+    inner = d > (torch.maximum(fn_max, fp_max) / 4.0)[:, None, None]
+    has = inner.any(-1).any(-1)
+    if gumbel is None:
+        flat = _first_true(inner.view(b, -1))
+    else:
+        score = torch.where(inner, gumbel, float("-inf"))
+        flat = torch.argmax(score.view(b, -1), -1)
+    orders = points[:, :, 2]
+    half = torch.where(is_pos[:, None], orders[:, :n], orders[:, n:])
+    free = (half < 0) & (torch.arange(n, device=points.device) < n_dyn)
+    slot = torch.where(free.any(1), _first_true(free), n_dyn - 1)
+    slot = torch.where(is_pos, slot, slot + n)
+    rows = torch.stack([(flat // w).float(), (flat % w).float(),
+                        _next_order(points)], -1)
+    new = torch.where(has[:, None], rows, _rows_at(points, slot))
+    return _set_rows(points, slot, new)
+
+
+def _value_in_mask_coords(mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The reference's `v in np.argwhere(mask)` (trainer.py:822): the VALUE
+    v among all row AND column coordinates of foreground pixels."""
+    h, w = mask.shape[-2:]
+    dev = mask.device
+    rows = mask.any(-1)
+    cols = mask.any(-2)
+    return ((rows & (torch.arange(h, device=dev) == v[:, None])).any(-1)
+            | (cols & (torch.arange(w, device=dev) == v[:, None])).any(-1))
+
+
+def _box_prompt_one(gtb: torch.Tensor, noise: Dict[str, torch.Tensor],
+                    det: bool, set_offset: int = BOX_OFFSET):
+    """cal_box_inference with as_allmask=True, jitter_box=True
+    (trainer.py:770-842), batched: the gt bbox with jittered, clamped
+    edges; the centre is replaced by a random foreground pixel when neither
+    centre coordinate VALUE appears among the foreground coordinates; zero
+    unless centre >= 1 and extents >= 1. `det` pins the offsets to 0 and the
+    pixel to the first foreground one. Returns ((B, 6) int32 [y0, x0, y1,
+    x1, y_c, x_c], (B,) ok)."""
+    b, h, w = gtb.shape
+    has = gtb.any(-1).any(-1)
+    y0, y1, x0, x1 = _bbox(gtb)
+    if det:
+        flat = _first_true(gtb.view(b, -1))
+        o = torch.zeros(b, 4, dtype=torch.int32, device=gtb.device)
+    else:
+        score = torch.where(gtb, noise["box_gumbel"], float("-inf"))
+        flat = torch.argmax(score.view(b, -1), -1)
+        o = noise["box_offsets"]
+    iy = (flat // w).to(torch.int32)
+    ix = (flat % w).to(torch.int32)
+    bx0 = (x0 + o[:, 0]).clamp_min(0).clamp_max(w - set_offset)
+    bx1 = torch.maximum((x1 + o[:, 1]).clamp_max(w), bx0 + set_offset)
+    by0 = (y0 + o[:, 2]).clamp_min(0).clamp_max(h - set_offset)
+    by1 = torch.maximum((y1 + o[:, 3]).clamp_max(h), by0 + set_offset)
+    xc = (bx0 + bx1) // 2
+    yc = (by0 + by1) // 2
+    sub = ~_value_in_mask_coords(gtb, xc) & ~_value_in_mask_coords(gtb, yc)
+    xc = torch.where(sub, ix, xc)
+    yc = torch.where(sub, iy, yc)
+    ok = has & (xc >= 1) & (yc >= 1) & (bx1 - bx0 >= 1) & (by1 - by0 >= 1)
+    out = torch.stack([by0, bx0, by1, bx1, yc, xc], -1).to(torch.int32)
+    return torch.where(ok[:, None], out, 0), ok
+
+
+def _rewrite_points_box(net_points: torch.Tensor, gtb: torch.Tensor,
+                        noise: Dict[str, torch.Tensor], n_dyn: torch.Tensor,
+                        first: torch.Tensor, det: bool) -> torch.Tensor:
+    """as_prompt_type=1 points rewrite (trainer.py:963-1009): on the first
+    click the clicks are DISCARDED and replaced by [centre (+, order 1) |
+    corner0 (-, order 0), corner1 (-, order 2)]; afterwards the three
+    pseudo-clicks follow the live clicks (centre at positive slot n_dyn,
+    corners at negative slots n_dyn, n_dyn + 1) with orders (max + 2,
+    max + 1, max + 3)."""
+    b, twon, _ = net_points.shape
+    n = twon // 2
+    bp, ok = _box_prompt_one(gtb, noise, det)
+    bpf = bp.float()
+    order = _next_order(net_points)
+    o_center = torch.where(first, 1.0, order + 1.0)
+    o_c0 = torch.where(first, 0.0, order)
+    o_c1 = torch.where(first, 2.0, order + 2.0)
+    base = torch.where(first, -1.0, net_points)
+    idx = torch.where(first, 0, n_dyn).expand(b)
+
+    def put(pts, at, row):
+        return _set_rows(pts, at, torch.where(ok[:, None], row,
+                                              _rows_at(pts, at)))
+
+    pts = put(base, idx, torch.stack([bpf[:, 4], bpf[:, 5], o_center], -1))
+    pts = put(pts, idx + n, torch.stack([bpf[:, 0], bpf[:, 1], o_c0], -1))
+    pts = put(pts, idx + n + 1, torch.stack([bpf[:, 2], bpf[:, 3], o_c1], -1))
+    return torch.where(ok.any(), pts, net_points)
+
+
+def _scribble_points_one(masks: torch.Tensor, noise: Dict[str, torch.Tensor],
+                         det: bool, num_p: int = SCRIBBLE_POINTS):
+    """cal_scribble_inference control points (trainer.py:844-899), batched:
+    rows stepped from the region's row min by `row_extent // 7` (plus a
+    randint(0, max(gap, 1)) jitter unless `det`); per row one foreground
+    pixel (the first for `det`, else the Gumbel argmax). Rows without
+    foreground are invalid. Returns (rows, cols, valid), each (B, num_p)."""
+    b, h, w = masks.shape
+    y0, y1, _, _ = _bbox(masks)
+    gap = (y1 - y0) // num_p
+    i = torch.arange(num_p, dtype=torch.int32, device=masks.device)
+    rows = y0[:, None] + i * gap[:, None]
+    if not det:
+        rows = rows + _randint_from_bits(noise["points_bits"], 0,
+                                         gap.clamp_min(1)[:, None])
+    rows = rows.clamp(0, h - 1)
+    bidx = torch.arange(b, device=masks.device)[:, None]
+    row_masks = masks[bidx, rows.long()]                     # (B, K, W)
+    valid = row_masks.any(-1)
+    if det:
+        cols = _first_true(row_masks)
+    else:
+        cols = torch.argmax(torch.where(row_masks, noise["points_g"],
+                                        float("-inf")), -1)
+    return rows, cols.to(torch.int32), valid
+
+
+def _rewrite_points_scribble(net_points: torch.Tensor, gtb: torch.Tensor,
+                             noise: Dict[str, torch.Tensor],
+                             n_dyn: torch.Tensor, first: torch.Tensor,
+                             det: bool) -> torch.Tensor:
+    """as_prompt_type=2 points rewrite (trainer.py:1011-1041): the scribble
+    CONTROL points become positive pseudo-clicks, replacing the clicks on
+    the first click (orders 0..K-1), after them otherwise (positive slots
+    n_dyn.., orders max + 1 + p); invalid rows are compacted away."""
+    twon = net_points.shape[1]
+    masks = connected_regions_mask_batch(gtb)      # max_connected_regions
+    rows, cols, valid = _scribble_points_one(masks, noise, det)
+    valid = valid & gtb.any(-1).any(-1)[:, None]
+    rank = torch.cumsum(valid.to(torch.int32), 1) - 1
+    o = (torch.where(first, 0.0, _next_order(net_points))[:, None]
+         + rank.float())
+    slots = torch.where(valid, torch.where(first, 0, n_dyn) + rank, twon)
+    base = torch.where(first, -1.0, net_points)
+    return _set_rows(base, slots,
+                     torch.stack([rows.float(), cols.float(), o], -1))
 
 
 # ---------------------------------------------------------------------------
@@ -196,9 +453,55 @@ def _transform_points(points: torch.Tensor, roi: torch.Tensor,
     return torch.cat([t, tf], 0)
 
 
+def _prompt_inputs(cfg: PredictorConfig, state: SessionState,
+                   crop: torch.Tensor, pts: torch.Tensor, roi: torch.Tensor,
+                   noise: Dict[str, torch.Tensor]):
+    """Box / scribble prompts from the ROI-cropped gt and error masks
+    (predictor.py:482-526). Returns (points, boxes, scribbles, ppue_points,
+    prompt_type) for the forward."""
+    th, tw = cfg.target_size
+    gtc = roi_crop_resize(state.gt[None, :, :, None], roi, th, tw)
+    if cfg.with_flip:
+        gtc = torch.cat([gtc, gtc.flip(2)], 0)
+    gtf = gtc[..., 0]
+    gtb = gtf > 0.5
+    first = state.click_count <= 1              # eval loop's click_indx == 0
+    det = cfg.deterministic_prompts
+    nmax = torch.maximum(state.num_pos, state.num_neg)
+    if cfg.net_clicks_limit is not None:
+        nmax = nmax.clamp_max(cfg.net_clicks_limit)
+    n_dyn = nmax.clamp_min(1)                   # base.py:199-202
+    if not cfg.as_multi_prompts:
+        # points-rewrite protocol (base.py:153-163): box corners / scribble
+        # control points become pseudo-clicks of a plain click forward
+        rewrite = (_rewrite_points_box if cfg.prompt_mode == 1
+                   else _rewrite_points_scribble)
+        return rewrite(pts, gtb, noise, n_dyn, first, det), None, None, \
+            None, 0
+    # prompt-tensor protocol (base.py:166-177): boxes from the dominant ROI
+    # error region, plus get_next_promts' extra error click appended to the
+    # PPuE points only (the disks keep the live clicks)
+    prevb = crop[..., 3]
+    fn = gtb & (prevb < cfg.prob_thresh)
+    fp = ~gtb & (prevb > cfg.prob_thresh)
+    boxes = synth_boxes(gtf, fn, fp, pts, as_allmask=False, jitter=False,
+                        n_dyn=n_dyn).float()
+    ppue_points = _append_error_click(prevb, gtf, pts, n_dyn,
+                                      noise.get("click_gumbel"),
+                                      cfg.prob_thresh)
+    scribbles = None
+    if cfg.prompt_mode == 2:
+        scr, rects = synth_scribbles(gtf, noise["scribble_u"],
+                                     noise["scribble_g"], num_samples=1000)
+        scribbles = (scr[:, None], rects[:, None])
+    return pts, boxes, scribbles, ppue_points, cfg.prompt_mode
+
+
 def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
-                   points: torch.Tensor, prev_probs: torch.Tensor):
-    """ROI update + crop + net forward + paste-back, using `prev_probs`."""
+                   points: torch.Tensor, prev_probs: torch.Tensor,
+                   noise: Optional[Dict[str, torch.Tensor]] = None):
+    """ROI update + crop + net forward + paste-back, using `prev_probs`.
+    `noise`: the click's prompt draws (prompt_mode 1 / 2)."""
     st = state._replace(prev_probs=prev_probs)
     roi, has_roi = _update_roi(cfg, st, points)
     th, tw = cfg.target_size
@@ -211,7 +514,13 @@ def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
         net_points = torch.where(points[..., 2:3] < cfg.net_clicks_limit,
                                  points, -1.0)
     pts = _transform_points(net_points, roi, (th, tw), cfg.with_flip)
-    logits = vpu_forward(model, cfg.model, crop, pts)["instances"]
+    boxes = scribbles = ppue_points = None
+    prompt_type = 0
+    if cfg.prompt_mode != 0:
+        pts, boxes, scribbles, ppue_points, prompt_type = _prompt_inputs(
+            cfg, state, crop, pts, roi, noise)
+    logits = vpu_forward(model, cfg.model, crop, pts, boxes, scribbles,
+                         prompt_type, ppue_points)["instances"]
     if cfg.with_flip:
         logits = 0.5 * (logits[:1] + logits[1:].flip(2))
     probs = torch.sigmoid(logits.float())
@@ -219,11 +528,12 @@ def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     return roi_paste_back(probs, roi, hc, wc), roi, has_roi
 
 
-def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState):
-    """One full interactive round. Returns (new_state, iou)."""
-    if cfg.prompt_mode != 0:
-        raise NotImplementedError("prompt_mode 1/2 (box / scribble) is not "
-                                  "ported yet (ROADMAP Queue 1 item 9)")
+def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState,
+               gen: Optional[torch.Generator] = None):
+    """One full interactive round. Returns (new_state, iou). `gen` (a CPU
+    generator) supplies the prompt draws of prompt_mode 1 / 2, once per
+    click (every cascade round reuses them, as JAX's per-click key does);
+    None draws from a fresh generator seeded NOISE_SEED."""
     n = state.points.shape[1] // 2
     hc, wc = state.gt.shape
 
@@ -249,12 +559,18 @@ def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState):
                         click_count=click_count)
 
     # --- 2. forward, with the optional CFR cascade (base.py:59-72) ---
-    probs, roi, has_roi = _forward_round(model, cfg, st, points, st.prev_probs)
+    noise = None
+    if cfg.prompt_mode != 0:
+        noise = _prompt_noise(cfg, gen if gen is not None else
+                              torch.Generator().manual_seed(NOISE_SEED),
+                              state.image.device)
+    probs, roi, has_roi = _forward_round(model, cfg, st, points, st.prev_probs,
+                                         noise)
     if cfg.cascade_step > 1:
         active = click_count <= cfg.cascade_clicks
         for _ in range(cfg.cascade_step - 1):
             nxt = torch.where(active, _forward_round(model, cfg, st, points,
-                                                     probs)[0], probs)
+                                                     probs, noise)[0], probs)
             if cfg.cascade_adaptive:
                 diff = ((nxt > cfg.prob_thresh)
                         != (probs > cfg.prob_thresh)).sum()
@@ -270,11 +586,15 @@ def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState):
 
 
 def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,
-               num_clicks: int):
-    """`num_clicks` rounds; returns (final state, ious (num_clicks,) tensor)."""
+               num_clicks: int, gen: Optional[torch.Generator] = None):
+    """`num_clicks` rounds; returns (final state, ious (num_clicks,) tensor).
+    The prompt draws of all rounds come from `gen` (None: one generator
+    seeded NOISE_SEED for the scan)."""
+    if gen is None:
+        gen = torch.Generator().manual_seed(NOISE_SEED)
     ious = []
     for _ in range(num_clicks):
-        state, iou = click_step(model, cfg, state)
+        state, iou = click_step(model, cfg, state, gen)
         ious.append(iou)
     return state, torch.stack(ious)
 
@@ -286,18 +606,16 @@ def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,
 class Predictor:
     """Session driver: canvas bucketing and an undo stack (the reference
     controller's session surface, headless). The model is moved to `device`
-    (default: where its parameters are) and cast once to the config's
-    compute dtype."""
+    (None: the card; device="cpu" for the CPU) and cast once to the
+    config's compute dtype. Each `set_input` restarts the prompt draws from
+    a CPU generator seeded NOISE_SEED."""
 
     def __init__(self, model: VPUModel, cfg: PredictorConfig, device=None):
-        if cfg.prompt_mode != 0:
-            raise NotImplementedError("prompt_mode 1/2 (box / scribble) is not "
-                                      "ported yet (ROADMAP Queue 1 item 9)")
-        self.device = torch.device(device) if device is not None else \
-            next(model.parameters()).device
+        self.device = resolve_device(device)
         # in place: the caller's module is moved and cast, not copied
         self.model = cast_params(model.to(self.device), cfg.model.dtype)
         self.cfg = cfg
+        self.gen = torch.Generator()
         self.state: Optional[SessionState] = None
         self._undo: list = []
 
@@ -320,13 +638,15 @@ class Predictor:
                     (nw, nh), PILImage.NEAREST))
         self.state = init_session(image, gt_mask, self.cfg.model.num_max_points,
                                   self._canvas(*image.shape[:2]), self.device)
+        self.gen.manual_seed(NOISE_SEED)
         self._undo = []
 
     @torch.no_grad()
     def next_click(self) -> float:
         """One oracle-driven round; returns IoU."""
         self._undo.append(self.state)
-        self.state, iou = click_step(self.model, self.cfg, self.state)
+        self.state, iou = click_step(self.model, self.cfg, self.state,
+                                     self.gen)
         return float(iou)
 
     @torch.no_grad()
@@ -334,7 +654,7 @@ class Predictor:
         """`num_clicks` rounds; returns the IoU curve (one host read)."""
         self._undo.append(self.state)
         self.state, ious = click_scan(self.model, self.cfg, self.state,
-                                      num_clicks)
+                                      num_clicks, self.gen)
         return ious.cpu().numpy()
 
     def undo_click(self) -> None:

@@ -1,11 +1,14 @@
 """The VPU model: ViT backbone + PPuE prompts + DMA neck + SegFormer head
-(pvpuformer_tpu/models/vpu.py), click prompts (prompt_type 0).
+(pvpuformer_tpu/models/vpu.py), click, box and scribble prompts.
 
-forward(image (B, H, W, 4), points (B, 2N, 3)):
+forward(image (B, H, W, 4), points (B, 2N, 3), [boxes / scribbles],
+prompt_type):
   1. split the prev-mask channel, ImageNet-normalize RGB;
-  2. coord features = [prev_mask, pos-disk, neg-disk];
+  2. coord features = [prev_mask, pos-disk, neg-disk], with the box outline
+     or the scribble stroke drawn into the disks (prompt_type 1 / 2);
   3. patch-embed image + coord features, ViT blocks with window patchify;
-  4. PPuE click vectors; DMA neck -> multi-scale features + q_out; head;
+  4. PPuE prompt vectors by type; DMA neck -> multi-scale features + q_out;
+     head;
   5. bilinear align_corners=True upsample to the input size.
 """
 from __future__ import annotations
@@ -18,7 +21,8 @@ from torch import nn as tnn
 
 from .. import nn
 from ..ops.distmaps import dist_maps
-from ..ops.ppue import PPuEConfig, ppue_click
+from ..ops.ppue import PPuEConfig, ppue_box, ppue_click, ppue_scribble
+from ..ops.rasterize import draw_box_into_coords, draw_scribble_into_coords
 from ..ops.resize import bilinear_resize
 from .fpn import Neck, NeckConfig, neck_forward
 from .seg_head import Head, HeadConfig, head_forward
@@ -105,16 +109,23 @@ class VPUModel(tnn.Module):
                              persistent=False)
 
     def forward(self, image: torch.Tensor, points: torch.Tensor,
-                prompt_type: int = 0) -> Dict[str, Optional[torch.Tensor]]:
-        return vpu_forward(self, self.cfg, image, points, prompt_type)
+                boxes: Optional[torch.Tensor] = None,
+                scribbles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                prompt_type: int = 0,
+                ppue_points: Optional[torch.Tensor] = None
+                ) -> Dict[str, Optional[torch.Tensor]]:
+        return vpu_forward(self, self.cfg, image, points, boxes, scribbles,
+                           prompt_type, ppue_points)
 
 
 def init_vpu(cfg: VPUConfig, generator: torch.Generator,
              device=None) -> VPUModel:
     """Seeded random weights with the JAX init families (xavier, kaiming,
-    normal); the numbers differ from JAX's by design."""
-    model = VPUModel(cfg, generator)
-    return model if device is None else model.to(device)
+    normal); the numbers differ from JAX's by design. The model is built on
+    the CPU from the CPU `generator` and moved to `device` (None: the card;
+    pass device="cpu" to stay on the CPU)."""
+    dev = nn.resolve_device(device)
+    return VPUModel(cfg, generator).to(dev)
 
 
 def prepare_input(p: VPUModel, cfg: VPUConfig, image: torch.Tensor):
@@ -127,30 +138,49 @@ def prepare_input(p: VPUModel, cfg: VPUConfig, image: torch.Tensor):
 
 
 def coord_features(cfg: VPUConfig, image: torch.Tensor, prev_mask,
-                   points: torch.Tensor) -> torch.Tensor:
-    """[prev_mask, pos, neg] channels (is_model.py:78-95)."""
+                   points: torch.Tensor, boxes=None, scribbles=None,
+                   prompt_type: int = 0) -> torch.Tensor:
+    """[prev_mask, pos, neg] channels (is_model.py:78-95), with the box
+    outline (prompt_type 1) or the scribble stroke (2) drawn into the disks.
+    `scribbles` = ((B, 1, S, 2), (B, 1, 4)) in the trainer layout."""
     h, w = image.shape[1], image.shape[2]
     disks = dist_maps(points, h, w, norm_radius=cfg.norm_radius,
                       use_disks=cfg.use_disks).to(image.dtype)
+    if prompt_type == 1 and boxes is not None:
+        disks = draw_box_into_coords(disks, boxes, points.shape[1] // 2)
+    elif prompt_type == 2 and scribbles is not None:
+        disks = draw_scribble_into_coords(disks, scribbles[0][:, 0])
     if prev_mask is not None:
         return torch.cat([prev_mask, disks], -1)
     return disks
 
 
 def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
-                points: torch.Tensor, prompt_type: int = 0
+                points: torch.Tensor, boxes: Optional[torch.Tensor] = None,
+                scribbles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                prompt_type: int = 0,
+                ppue_points: Optional[torch.Tensor] = None
                 ) -> Dict[str, Optional[torch.Tensor]]:
     """Returns {"instances": (B, H, W, 1) logits, "instances_aux":
-    (B, H, W, 2*num_max_points) P2CL maps}."""
-    if prompt_type != 0:
-        raise NotImplementedError("box / scribble prompts are not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+    (B, H, W, 2*num_max_points) P2CL maps}. `prompt_type` (0 click, 1 box,
+    2 scribble) selects the PPuE encoder; boxes (B, 5) and scribbles
+    ((B, 1, S, 2), (B, 1, 4)) as in the JAX package. `ppue_points`
+    replaces the clicks fed to the PPuE encoders only (the disks keep
+    `points`): the prompt session's extra error click."""
     image = image.to(cfg.dtype)
     rgb, prev_mask = prepare_input(p, cfg, image)
-    coords = coord_features(cfg, rgb, prev_mask, points)
+    coords = coord_features(cfg, rgb, prev_mask, points, boxes, scribbles,
+                            prompt_type)
     add = nn.patch_embed(p.patch_embed_coords, coords, cfg.backbone.patch_size)
     tokens = vit_backbone_forward(p.backbone, cfg.backbone, rgb, additional=add)
-    pv = ppue_click(points, cfg.ppue, num_max_points=cfg.num_max_points)
+    ppts = points if ppue_points is None else ppue_points
+    if prompt_type == 0:
+        pv = ppue_click(ppts, cfg.ppue, num_max_points=cfg.num_max_points)
+    elif prompt_type == 1:
+        pv = ppue_box(ppts, boxes, cfg.ppue, num_max_points=cfg.num_max_points)
+    else:
+        pv = ppue_scribble(ppts, scribbles[0][:, 0], scribbles[1][:, 0],
+                           cfg.ppue, num_max_points=cfg.num_max_points)
     ms_feats, q_out = neck_forward(p.neck, cfg.neck, tokens, pv.to(cfg.dtype),
                                    cfg.backbone.grid_size)
     seg, pcl = head_forward(p.head, cfg.head, ms_feats, q_out)

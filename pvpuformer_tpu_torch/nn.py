@@ -244,3 +244,13 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every floating parameter (and buffer) to `dtype`, in place."""
     return module.to(dtype)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: None means the card ("cuda").
+    Without a card this raises instead of running on the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device=\"cpu\" "
+                           "to run on the CPU")
+    return dev

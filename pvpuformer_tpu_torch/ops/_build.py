@@ -2,8 +2,9 @@
 
 `library()` compiles every `csrc/*.cu` into one shared library with a plain C
 interface, on first use, into `build/kernels/<hash>/` at the repository root
-(listed in .gitignore). The hash covers the sources and the flags, so an
-edited source builds anew and an unchanged one loads the cached library.
+(listed in .gitignore): one nvcc per source, all started together, then one
+link. The hash covers the sources and the flags, so an edited source builds
+anew and an unchanged one loads the cached library.
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises when that is not 0.
 """
@@ -21,8 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +35,8 @@ SIGNATURES = {
     "pvpu_minplus_rows": [_P, _P, _I, _I, _P],
     "pvpu_ln_fc1_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pvpu_fc2_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pvpu_cc_labels": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pvpu_component_max": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -60,17 +64,32 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)                   # atomic: concurrent builders agree
+    work = Path(tempfile.mkdtemp(dir=out_dir))   # private to this builder
+    try:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [str(work / (src.stem + ".o")) for src in srcs]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                 str(src)] for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]                # all compile at once
+        runs = [(cmd, p.communicate()[0], p.returncode)
+                for cmd, p in zip(cmds, procs)]
+        tmp = str(work / lib.name)
+        if all(rc == 0 for _, _, rc in runs):
+            link = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+            p = subprocess.run(link, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            runs.append((link, p.stdout, p.returncode))
+        (out_dir / "nvcc.log").write_text(
+            "\n".join(f"$ {' '.join(cmd)}\n{out}" for cmd, out, _ in runs))
+        for cmd, out, rc in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{out[-4000:]}")
+        os.replace(tmp, lib)               # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -77,8 +77,11 @@ def _squared_edt_batch(masks: torch.Tensor, chunk, rows) -> torch.Tensor:
 
 def squared_edt_pair(fn_mask: torch.Tensor, fp_mask: torch.Tensor,
                      chunk: Optional[int] = 32, rows: str = "scan"):
-    """Both error-mask EDTs with ONE min-plus launch over the stacked rows."""
-    d = _squared_edt_batch(torch.stack([fn_mask, fp_mask]), chunk, rows)
+    """Both error-mask EDTs of (..., H, W) masks (a batch of them too) with
+    ONE min-plus launch over the stacked rows."""
+    h, w = fn_mask.shape[-2:]
+    d = _squared_edt_batch(torch.stack([fn_mask, fp_mask]).reshape(-1, h, w),
+                           chunk, rows).reshape((2,) + fn_mask.shape)
     return d[0], d[1]
 
 

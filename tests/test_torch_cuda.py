@@ -11,14 +11,17 @@ attention atol 5e-3 for the fused entry and 1.5e-2 for the flash entry,
 about 2-3x the error measured on an H100 (the fused entry shares its plain
 version's rounding points; the flash entry rounds P before normalizing, its
 plain version after); min-plus bit-exact; LN+MLP bf16 atol 0.06 / rtol 0.05
-as the JAX kernel's own test, at its operand scale (weights N(0, 0.05))."""
+as the JAX kernel's own test, at its operand scale (weights N(0, 0.05));
+the two CC kernels bit-exact (integer max); tiny f32 prompt sessions on the
+card vs the same sessions on the CPU: identical clicks, IoU within 1e-5."""
+import dataclasses
 import types
 
 import numpy as np
 import pytest
 import torch
 
-from pvpuformer_tpu_torch.ops import attention, edt_minplus, fused_attention
+from pvpuformer_tpu_torch.ops import attention, cc, edt_minplus, fused_attention
 from pvpuformer_tpu_torch.ops import fused_mlp
 
 
@@ -113,3 +116,110 @@ def test_fused_ln_mlp_kernel_matches_plain(cuda, m):
     # f32 is a semantic route to the plain ops: no launch
     fused_mlp.fused_ln_mlp(x.float(), ln, mlp)
     assert fused_mlp.fused_ln_mlp.launches == n0 + 1
+
+
+def _blobs(seed, b, h, w, n=8):
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    m = np.zeros((b, h, w), bool)
+    for i in range(b):
+        for _ in range(n):
+            cy, cx = r.integers(0, h), r.integers(0, w)
+            m[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r.integers(2, 40) ** 2
+    return m
+
+
+def _snake(h=40, w=40):
+    """One component with 10 direction reversals: > 8 flood rounds."""
+    m = np.zeros((1, h, w), bool)
+    for i in range(0, h, 4):
+        m[0, i, 1:w - 1] = True
+        m[0, i:i + 4, w - 2 if (i // 4) % 2 == 0 else 1] = True
+    return m
+
+
+def _speckles():
+    m = np.zeros((1, 64, 96), bool)
+    m[0, 8::2, 1::2] = True                    # 28 x 48 = 1344 components
+    return m
+
+
+CC_CASES = {"path": _blobs(0, 2, 448, 448), "snake": _snake(),
+            "speckles": _speckles(), "ragged": _blobs(1, 3, 74, 53, 4),
+            "empty": np.zeros((2, 30, 40), bool)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CC_CASES))
+def test_cc_kernels_bit_exact(cuda, case):
+    m = torch.from_numpy(CC_CASES[case]).to(cuda)
+    v = torch.randint(0, 10 ** 6, m.shape, dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(1)).to(cuda)
+    n0, n1 = cc.cc_labels.launches, cc.component_max.launches
+    for iters in (1, 8):
+        got = cc.cc_labels(m, iters)
+        got_v = cc.component_max(m, v, iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cc.cc_labels_plain(m, iters))
+        assert torch.equal(got_v, cc.component_max_plain(m, v, iters))
+    assert (cc.cc_labels.launches, cc.component_max.launches) == (n0 + 2, n1 + 2)
+
+
+@pytest.mark.cuda
+def test_cc_kernels_raise_outside_their_envelope(cuda):
+    with pytest.raises(ValueError, match="8192"):
+        cc.cc_labels(torch.zeros(1, 2, 8193, dtype=torch.bool, device=cuda))
+    with pytest.raises(TypeError, match="int32"):
+        m = torch.ones(1, 4, 4, dtype=torch.bool, device=cuda)
+        cc.component_max(m, m.long())
+
+
+def _tiny_config():
+    from pvpuformer_tpu_torch.models.fpn import NeckConfig
+    from pvpuformer_tpu_torch.models.seg_head import HeadConfig
+    from pvpuformer_tpu_torch.models.two_way import TwoWayConfig
+    from pvpuformer_tpu_torch.models.vit import ViTConfig
+    from pvpuformer_tpu_torch.models.vpu import VPUConfig
+    return VPUConfig(
+        backbone=ViTConfig(img_size=(64, 64), patch_size=(16, 16),
+                           embed_dim=64, depth=4, num_heads=2,
+                           window_pixels=32),
+        neck=NeckConfig(in_dim=64, out_dims=(16, 32, 48, 64), img_size=(64, 64),
+                        hide_dim=64, two_way=TwoWayConfig(
+                            depth=3, embedding_dim=64, num_heads=4, mlp_dim=64)),
+        head=HeadConfig(in_channels=(16, 32, 48, 64), channels=32, d_model=64),
+        num_max_points=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,multi", [(1, True), (1, False), (2, True),
+                                        (2, False)])
+def test_prompt_session_cuda_matches_cpu(cuda, mode, multi):
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+    cfg = PredictorConfig(model=_tiny_config(), target_size=(64, 64),
+                          min_crop_size=32, prompt_mode=mode,
+                          as_multi_prompts=multi, deterministic_prompts=True)
+    r = np.random.default_rng(7)
+    image = (r.uniform(size=(60, 90, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((60, 90), np.float32)
+    gt[14:50, 18:46] = 1.0
+    out = []
+    for where in ("cpu", cuda):
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+        pred = Predictor(model, cfg, device=where)
+        pred.set_input(image, gt)
+        out.append((pred.run_clicks(4), pred.clicks))
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-5)
+    # random prompts draw the same noise on both devices
+    rnd = dataclasses.replace(cfg, deterministic_prompts=False)
+    clicks = []
+    for where in ("cpu", cuda):
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+        pred = Predictor(model, rnd, device=where)
+        pred.set_input(image, gt)
+        pred.run_clicks(3)
+        clicks.append(pred.clicks)
+    np.testing.assert_array_equal(clicks[0], clicks[1])

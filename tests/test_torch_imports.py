@@ -16,6 +16,8 @@ import sys
 import pvpuformer_tpu_torch.inference.predictor
 import pvpuformer_tpu_torch.utils.serialization
 import pvpuformer_tpu_torch.ops.edt, pvpuformer_tpu_torch.ops.fused_mlp
+import pvpuformer_tpu_torch.ops.cc, pvpuformer_tpu_torch.ops.rasterize
+import pvpuformer_tpu_torch.engine.prompt_sim
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton'))
 assert not bad, bad

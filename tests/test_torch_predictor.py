@@ -18,6 +18,7 @@ from pvpuformer_tpu.inference import predictor as jpred
 from pvpuformer_tpu.models.vpu import init_vpu as jax_init_vpu
 from pvpuformer_tpu.utils.serialization import config_to_dict
 from pvpuformer_tpu_torch.inference import predictor as tpred
+from pvpuformer_tpu_torch.models.vpu import init_vpu
 from pvpuformer_tpu_torch.utils.serialization import config_from_dict
 from test_models import tiny_cfg
 from test_torch_model import port_model
@@ -61,7 +62,7 @@ def test_click_scan_matches_jax(weights, variant):
             jst, jious = jpred.click_scan(params, jcfg_p, jpred.init_session(
                 image, gt, jcfg.num_max_points, canvas), 5)
         tst, tious = tpred.click_scan(model, cfg, tpred.init_session(
-            image, gt, jcfg.num_max_points, canvas), 5)
+            image, gt, jcfg.num_max_points, canvas, device="cpu"), 5)
         np.testing.assert_array_equal(tst.points.numpy(),
                                       np.asarray(jst.points))
         np.testing.assert_allclose(tious.numpy(), np.asarray(jious), atol=1e-5)
@@ -78,7 +79,7 @@ def test_golden_click_trajectory_through_the_port():
     jcfg = tiny_cfg()
     model, mcfg = port_model(jax_init_vpu(jax.random.key(0), jcfg), jcfg)
     pred = tpred.Predictor(model, tpred.PredictorConfig(
-        model=mcfg, target_size=(64, 64), min_crop_size=32))
+        model=mcfg, target_size=(64, 64), min_crop_size=32), device="cpu")
     r = np.random.default_rng(7)
     image = (r.uniform(size=(64, 64, 3)) * 255).astype(np.uint8)
     gt = np.zeros((64, 64), np.float32)
@@ -113,7 +114,7 @@ def test_update_roi_zooms_like_jax(weights):
                            has_roi=jnp.asarray(has_roi),
                            click_count=jnp.asarray(len(pts_rows), jnp.int32))
         want, _ = jpred._update_roi(jcfg_p, jst, jnp.asarray(points))
-        tst = tpred.init_session(image, gt, 6, (64, 128))._replace(
+        tst = tpred.init_session(image, gt, 6, (64, 128), device="cpu")._replace(
             prev_probs=torch.from_numpy(probs),
             roi=torch.tensor(old_roi, dtype=torch.int32),
             has_roi=torch.tensor(has_roi),
@@ -126,7 +127,8 @@ def test_predictor_session_surface(weights):
     _, jcfg, model = weights
     mcfg = config_from_dict(config_to_dict(jcfg))
     pred = tpred.Predictor(model, tpred.PredictorConfig(
-        model=mcfg, target_size=(64, 64), canvas_bucket=32, min_crop_size=32))
+        model=mcfg, target_size=(64, 64), canvas_bucket=32, min_crop_size=32),
+        device="cpu")
     image, gt = SAMPLES[0][0]
     pred.set_input(image, gt)
     assert tuple(pred.state.image.shape) == (1, 64, 96, 3)
@@ -137,5 +139,27 @@ def test_predictor_session_surface(weights):
     pred.undo_click()
     assert int(pred.state.click_count) == 3
     assert pred.probs.shape == (60, 90) and pred.clicks.shape == (12, 3)
-    with pytest.raises(NotImplementedError, match="prompt_mode"):
-        tpred.Predictor(model, dataclasses.replace(pred.cfg, prompt_mode=1))
+    # a prompt-mode Predictor runs: random box prompts, its own noise
+    boxes = tpred.Predictor(model, dataclasses.replace(pred.cfg, prompt_mode=1),
+                            device="cpu")
+    boxes.set_input(image, gt)
+    ious = boxes.run_clicks(2)
+    assert ious.shape == (2,) and np.all((ious >= 0) & (ious <= 1))
+    assert int(boxes.state.click_count) == 2
+
+
+def test_entry_points_default_to_the_card(weights, monkeypatch):
+    """device=None means "cuda": without a card each entry point raises and
+    names device="cpu", instead of running on the CPU unasked."""
+    _, jcfg, model = weights
+    mcfg = config_from_dict(config_to_dict(jcfg))
+    image, gt = SAMPLES[0][0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_vpu(mcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tpred.init_session(image, gt, 6, (64, 128))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tpred.Predictor(model, tpred.PredictorConfig(model=mcfg))
+    assert next(init_vpu(mcfg, torch.Generator().manual_seed(0),
+                         device="cpu").parameters()).device.type == "cpu"

@@ -107,8 +107,8 @@ def test_init_tree_matches_jax_at_full_vit_b_width():
 def test_seeded_init_is_deterministic_and_in_family():
     cfg = vpu_base_config()
     cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone, depth=4))
-    a = init_vpu(cfg, torch.Generator().manual_seed(3))
-    b = init_vpu(cfg, torch.Generator().manual_seed(3))
+    a = init_vpu(cfg, torch.Generator().manual_seed(3), device="cpu")
+    b = init_vpu(cfg, torch.Generator().manual_seed(3), device="cpu")
     sa, sb = a.state_dict(), b.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     w = sa["backbone.blocks.0.attn.qkv.w"]                 # xavier uniform
