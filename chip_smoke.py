@@ -7,11 +7,13 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      and power limit from nvidia-smi; TF32 off for the f32 phases;
   2. build: nvcc compiles pvpuformer_tpu_torch/csrc/*.cu into build/kernels/;
   3. kernels vs their plain PyTorch versions on the card, at the ViT-B@448
-     click- and prompt-path shapes (and the CC kernels at a snake that needs
-     more than 8 rounds, > 256 components, a ragged shape and an empty
-     mask), with the error beside its tolerance, the kernel time beside the
-     plain time, the bound and, for attention, the time of
-     torch's scaled_dot_product_attention (timed only, never used);
+     click-, prompt- and training-path (batch 32) shapes (and the CC
+     kernels at a snake that needs more than 8 rounds, > 256 components, a
+     ragged shape and an empty mask), with the
+     error beside its tolerance, the kernel time beside the plain time, the
+     bound and, for attention, the time of torch's
+     scaled_dot_product_attention, forward or backward (timed only, never
+     used);
   4. model parity: a 5-click f32 session at a tiny config on CUDA (kernels)
      vs on the CPU (plain versions), same port weights: identical clicks,
      IoU within 1e-5;
@@ -26,6 +28,16 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      `Predictor`, 5 clicks for each of the four variants (random prompts):
      IoUs finite in [0, 1] and every kernel's launch count equal to the
      wrapper calls the path makes, counted per variant;
+  8. training parity: two f32 `train_step`s of the tiny config (batch 2,
+     one step with a box round) on CUDA vs on the CPU, the same draws:
+     loss, every gradient and the updated parameters within tolerance;
+  9. the training path: ViT-B@448 bf16, the shipped recipe (batch 32, 24
+     points, iterloss weights (1, 2, 3), Adam 5e-5), 3 `Trainer` steps with
+     num_iters 1, 2 and 3 and at least one box round: losses finite,
+     parameters changed, every kernel's launches (forward and backward)
+     equal to what the drawn prompt types predict; ms per step, peak
+     memory, the device-busy share of one more profiled step, and the host
+     syncs of one more step under torch's sync debug mode;
 then one JSON line of kernel summaries, the card's name and power limit,
 and, last, {"ok": true, "device": ...}.
 
@@ -96,9 +108,14 @@ def _compare(name, kernel_fn, plain_fn, atol, rtol, exact=False):
     """Run a kernel and its plain version on the same inputs; raise on
     disagreement. Returns (max_abs_err, kernel ms, plain ms)."""
     import torch
-    got = kernel_fn()
+
+    def flat(x):                  # a kernel with several outputs
+        return torch.cat([t.reshape(-1) for t in x]) \
+            if isinstance(x, tuple) else x
+
+    got = flat(kernel_fn())
     torch.cuda.synchronize()
-    want = plain_fn()
+    want = flat(plain_fn())
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
@@ -143,13 +160,23 @@ def phase_kernels(dev):
         if main_shape:
             times[name] = (*r[1:], *bound, library_ms)
 
-    # (B, N, H, D): window blocks 8 windows x 12 heads, global 2 x 12 heads;
-    # the summary line reports times at the global shape in bf16. bf16 limits
-    # are ~2-3x each entry's measured error (PERF.md, Findings)
+    # (B, N, H, D): the click path's window blocks 8 windows x 12 heads,
+    # global 2 x 12 heads, in bf16 and f32; the training path's at batch 32
+    # (32 x 4 windows, 32 images), bf16, fused attention only (flash is not
+    # on that path); the summary line reports times at the click path's
+    # global shape in bf16. bf16 limits are ~2-3x each entry's measured
+    # error (PERF.md, Findings)
     bf16_atol = {"fused_attention": 5e-3, "flash_attention": 1.5e-2}
-    for label, shape in (("window", (8, 196, 12, 64)),
-                         ("global", (2, 784, 12, 64))):
-        for dt in (torch.bfloat16, torch.float32):
+    both = (("fused_attention", fu.fused_attention, fu.fused_attention_plain),
+            ("flash_attention", fa.flash_attention, fa.flash_attention_plain))
+    for label, shape, dts, impls in (
+            ("window", (8, 196, 12, 64), (torch.bfloat16, torch.float32),
+             both),
+            ("global", (2, 784, 12, 64), (torch.bfloat16, torch.float32),
+             both),
+            ("train window", (128, 196, 12, 64), (torch.bfloat16,), both[:1]),
+            ("train global", (32, 784, 12, 64), (torch.bfloat16,), both[:1])):
+        for dt in dts:
             q, k, v = (torch.randn(shape, generator=g).to(dev, dt)
                        for _ in range(3))
             b, n, h, d = shape
@@ -160,11 +187,7 @@ def phase_kernels(dev):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=1.0 / 8.0))
-            for name, kern, plain in (
-                    ("fused_attention", fu.fused_attention,
-                     fu.fused_attention_plain),
-                    ("flash_attention", fa.flash_attention,
-                     fa.flash_attention_plain)):
+            for name, kern, plain in impls:
                 tol = ((bf16_atol[name], 0.0) if dt == torch.bfloat16
                        else (1e-4, 1e-4))
                 r = _compare(f"{name} {label} {tuple(shape)} {dt}",
@@ -172,7 +195,39 @@ def phase_kernels(dev):
                              lambda: plain(q, k, v, 1.0 / 8.0), *tol)
                 record(name, r, label == "global" and dt == torch.bfloat16,
                        bound, lib_ms)
-    for shape in ((896, 448), (74, 53), (64, 1000)):
+    # the attention backward at the training shapes, batch 32 (window
+    # blocks 32 x 4 windows x 12 heads, global blocks 32 x 12 heads), bf16,
+    # and at a small shape in f32; the bf16 limit is ~2.5x the error
+    # measured on an H100 (3.9e-3), f32 as the forward. The bound counts
+    # the five N x N x D products of the function (S, dV, dP, dQ, dK)
+    for label, shape, dt in (("window", (128, 196, 12, 64), torch.bfloat16),
+                             ("global", (32, 784, 12, 64), torch.bfloat16),
+                             ("small", (2, 100, 3, 32), torch.float32)):
+        q, k, v, do = (torch.randn(shape, generator=g).to(dev, dt)
+                       for _ in range(4))
+        b, n, h, d = shape
+        bf16 = dt == torch.bfloat16
+        sc = d ** -0.5
+        bound = _bound(10.0 * b * h * n * n * d,
+                       PEAK_BF16 if bf16 else PEAK_CUDA_CORE,
+                       7.0 * b * h * n * d * q.element_size())
+        lib_ms = None
+        if bf16:
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, scale=sc)
+            dot = do.transpose(1, 2).contiguous()
+            lib_ms = _time_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True))
+            del ot
+        r = _compare(f"fused_attention_bwd {label} {tuple(shape)} {dt}",
+                     lambda: fu.launch_attention_bwd(q, k, v, do, sc),
+                     lambda: fu.fused_attention_bwd_plain(q, k, v, do, sc),
+                     *((1e-2, 0.0) if bf16 else (1e-4, 1e-4)))
+        record("fused_attention_bwd", r, label == "global", bound, lib_ms)
+    # the click path's flip batch (2 masks x 448 rows, both error masks),
+    # the training path's next_clicks at batch 32 (2 x 32 x 448 rows), edges
+    for shape in ((896, 448), (28672, 448), (74, 53), (64, 1000)):
         f = torch.randint(0, 300, shape, generator=g).float().square().to(dev)
         r = _compare(f"minplus_rows {shape}", lambda: edt_minplus.minplus_rows(f),
                      lambda: edt_minplus.minplus_rows_plain(f), 0, 0, exact=True)
@@ -182,8 +237,9 @@ def phase_kernels(dev):
     # operands at the JAX kernel test's scale (weights and biases N(0, 0.05)):
     # the MLP term is then ~3x the residual, so dropping b1, b2, beta or one
     # 32-deep weight chunk breaks the tolerance (PERF.md, Findings)
-    m, d, hid = 1568, 768, 3072
-    x = torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
+    # rows: the click path's flip batch (2 x 784 tokens), the training
+    # path's batch 32 (32 x 784); the summary reports the click path's
+    d, hid = 768, 3072
     ln, mlp = nn.Norm(d), nn.Mlp(d, hid)
     with torch.no_grad():
         ln.scale.normal_(1.0, 0.1, generator=g)
@@ -192,16 +248,19 @@ def phase_kernels(dev):
             p.normal_(0.0, 0.05, generator=g)
     ln.to(dev, torch.bfloat16)
     mlp.to(dev, torch.bfloat16)
-    record("fused_ln_mlp", _compare(
-        f"fused_ln_mlp ({m},{d})->{hid} bf16",
-        lambda: fused_mlp.fused_ln_mlp(x, ln, mlp),
-        lambda: fused_mlp.fused_ln_mlp_plain(
-            x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w, mlp.fc2.b,
-            1e-6), 0.06, 0.05), True,
-        _bound(4.0 * m * d * hid, PEAK_BF16,
-               2.0 * (2 * m * d + 2 * d * hid + hid + d) + 4.0 * 2 * d))
+    for m in (1568, 32 * 784):
+        x = torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
+        record("fused_ln_mlp", _compare(
+            f"fused_ln_mlp ({m},{d})->{hid} bf16",
+            lambda: fused_mlp.fused_ln_mlp(x, ln, mlp),
+            lambda: fused_mlp.fused_ln_mlp_plain(
+                x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w,
+                mlp.fc2.b, 1e-6), 0.06, 0.05), m == 1568,
+            _bound(4.0 * m * d * hid, PEAK_BF16,
+                   2.0 * (2 * m * d + 2 * d * hid + hid + d) + 4.0 * 2 * d))
     # the CC kernels: bit-exact at the prompt path's (2, 448, 448) masks
-    # (the error / gt masks of the flip batch) and at the edge cases
+    # (the error / gt masks of the flip batch), the training path's
+    # (32, 448, 448) and at the edge cases
     iters = 8
     for label, masks in cc_masks().items():
         mt = torch.from_numpy(masks).to(dev)
@@ -226,7 +285,8 @@ def phase_kernels(dev):
 
 def cc_masks():
     """The CC kernels' test masks: random blobs at the prompt path's flip
-    batch (2, 448, 448) (like tests/test_engine.py:blobby_mask); a snake
+    batch (2, 448, 448) (like tests/test_engine.py:blobby_mask) and at the
+    training path's batch (32, 448, 448); a snake
     with 10 direction reversals (> 8 flood rounds, so labels stay partial);
     1345 components; a ragged (3, 74, 53); an empty mask."""
     def blobs(seed, b, h, w, n):
@@ -246,7 +306,8 @@ def cc_masks():
     speckles = np.zeros((1, 64, 96), bool)
     speckles[0, 1:5, 1:5] = True
     speckles[0, 8::2, 1::2] = True
-    return {"path": blobs(0, 2, 448, 448, 12), "snake": snake,
+    return {"path": blobs(0, 2, 448, 448, 12),
+            "train": blobs(2, 32, 448, 448, 12), "snake": snake,
             "speckles": speckles, "ragged": blobs(1, 3, 74, 53, 6),
             "empty": np.zeros((2, 448, 448), bool)}
 
@@ -488,12 +549,299 @@ def _no_host_sync(pred):
     torch.cuda.synchronize()
 
 
+def _counts():
+    """Every launch counter: the wrappers' forward counts and, under
+    "<name>_bwd", the backward counts of the differentiable wrappers (the
+    attention backward kernel; the dense flash and LN+MLP recomputes)."""
+    out = {}
+    for w in _wrappers():
+        out[w.__name__] = w.launches
+        if hasattr(w, "bwd_launches"):
+            out[w.__name__ + "_bwd"] = w.bwd_launches
+    return out
+
+
+def _zero_counts():
+    for w in _wrappers():
+        w.launches = 0
+        if hasattr(w, "bwd_launches"):
+            w.bwd_launches = 0
+
+
+def train_batch(b: int, hw: int, n: int, seed: int = 0):
+    """A training batch (tests/test_engine.py:tiny_batch's layout): the
+    phase 5 image and gt box scaled to hw, one positive click at the gt
+    centre, empty scribbles; the same sample b times."""
+    rng = np.random.default_rng(seed)
+    image = rng.uniform(size=(hw, hw, 3)).astype(np.float32)
+    gt = np.zeros((hw, hw, 1), np.float32)
+    y0, y1, x0, x1 = (int(v * hw / 448) for v in (96, 352, 128, 320))
+    gt[y0:y1, x0:x1] = 1.0
+    points = np.full((2 * n, 3), -1.0, np.float32)
+    points[0] = ((y0 + y1) // 2, (x0 + x1) // 2, 0)
+    rep = lambda a: np.repeat(a[None], b, 0)  # noqa: E731
+    return {"image": rep(image), "instances": rep(gt), "points": rep(points),
+            "scribbles": np.zeros((b, 1000, 2), np.float32),
+            "scribble_rects": np.zeros((b, 4), np.float32)}
+
+
+def _box_seed(cfg, num_iters: int) -> int:
+    """The first generator seed whose step draws a box round and a click
+    round."""
+    import torch
+    from pvpuformer_tpu_torch.engine.train_step import _train_noise
+    for seed in range(1 << 16):
+        types = _train_noise(cfg, torch.Generator().manual_seed(seed), 1, 1,
+                             1, num_iters)["prompt_types"]
+        if {0, 1} <= set(types):
+            return seed
+    raise AssertionError("no seed draws a box round and a click round")
+
+
+def phase_train_parity(dev):
+    """Phase 8: two tiny f32 train steps on CUDA vs on the CPU, the same
+    draws (the generator lives on the host). SGD, not Adam: Adam divides
+    each gradient element by its own magnitude, so a near-zero gradient
+    that differs in its last bits moves its parameter by up to lr; SGD
+    keeps the parameter error proportional to the gradient error.
+    Tolerances: loss 1e-4 (abs, ~15), every gradient 1e-4 x max(max |g|, 1)
+    (the same f32 math summed in another order, through the plain f32
+    kernels), parameters 1e-6."""
+    import torch
+    from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
+    from pvpuformer_tpu_torch.engine.train_step import TrainConfig, train_step
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+
+    cfg = TrainConfig(model=tiny_config())
+    steps = [(3, _box_seed(cfg, 3)), (2, 1)]
+    runs = {}
+    for where in ("cpu", dev):
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+        model.to(where)
+        tx = make_optimizer(model, "sgd", lr=5e-5, momentum=0.9)
+        grads, losses = [], []
+        step = tx.step
+
+        def spy():
+            grads.append({n: None if p.grad is None else p.grad.cpu()
+                          for n, p in model.named_parameters()})
+            return step()
+
+        tx.step = spy
+        thr = torch.tensor([0.4, 0.375, 0.425], device=where)
+        for i, (ni, seed) in enumerate(steps):
+            logs, _, _ = train_step(model, tx, train_batch(2, 64, 6, seed=i),
+                                    torch.Generator().manual_seed(seed), thr,
+                                    cfg=cfg, num_iters=ni, device=where)
+            losses.append(float(logs["loss"]))
+        runs[str(where)] = (losses, grads,
+                            {n: p.detach().cpu()
+                             for n, p in model.named_parameters()})
+    (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+    grad_err, grad_scale = 0.0, 1.0
+    for a, b in zip(gc, gg):
+        if {n for n in a if a[n] is None} != {n for n in b if b[n] is None}:
+            raise AssertionError("train parity: different parameters got "
+                                 "no gradient")
+        grad_scale = max([grad_scale] + [float(t.abs().max())
+                                         for t in a.values() if t is not None])
+        grad_err = max([grad_err] + [float((a[n] - b[n]).abs().max())
+                                     for n in a if a[n] is not None])
+    param_err = max(float((pc[n] - pg[n]).abs().max()) for n in pc)
+    ok = (loss_err <= 1e-4 and grad_err <= 1e-4 * grad_scale
+          and param_err <= 1e-6)
+    _log(f"  tiny f32 train steps (num_iters 3 with a box round, then 2) "
+         f"cuda vs cpu: losses {lg} vs {lc}, max |dloss| {loss_err:.2e} "
+         f"(tol 1e-4), max |dgrad| {grad_err:.2e} (tol 1e-4 x "
+         f"{grad_scale:.3g}), max |dparam| {param_err:.2e} (tol 1e-6) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training parity: CUDA and CPU steps disagree")
+
+
+TRAIN_BATCH = 32          # vpu_base448_cocolvis.py's batch size
+
+
+class _Repeat:
+    """A loader that yields one batch `n` times per epoch."""
+
+    def __init__(self, batch, n):
+        self.batch, self.n = batch, n
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter([self.batch] * self.n)
+
+
+def phase_train(dev, card: str):
+    """Phase 9: the full-width training path through `Trainer`. Falls back
+    to a smaller batch only on an out-of-memory error, and says so."""
+    import random
+    import torch
+    from pvpuformer_tpu_torch.engine.train_step import TrainConfig, _train_noise
+    from pvpuformer_tpu_torch.models.vpu import vpu_base_config
+
+    cfg = TrainConfig(model=vpu_base_config(dtype=torch.bfloat16))
+
+    def types(seed, step, ni):
+        gen = torch.Generator().manual_seed((seed << 20) ^ step)
+        return _train_noise(cfg, gen, 1, 1, 1, ni)["prompt_types"]
+
+    def num_iters(seed):              # the Trainer's draw for epoch 0
+        rng = random.Random(f"{seed}-0")
+        return [rng.randint(1, cfg.max_num_next_clicks) for _ in range(3)]
+
+    # a Trainer seed whose epoch 0 draws num_iters 1, 2, 3, with at least
+    # one box round among the 6 rounds
+    seed = next(s for s in range(1 << 16) if num_iters(s) == [1, 2, 3]
+                and any(1 in types(s, i, i + 1) for i in range(3)))
+    plan = [types(seed, i, i + 1) for i in range(3)]
+    for b in (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4):
+        try:
+            return _train_run(dev, card, cfg, seed, plan, b)
+        except torch.OutOfMemoryError as e:
+            _log(f"  batch {b} does not fit: {str(e).splitlines()[0]}")
+            torch.cuda.empty_cache()
+    raise AssertionError("the training path fits no batch >= 8")
+
+
+def _train_run(dev, card, cfg, seed, plan, b):
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pvpuformer_tpu_torch.engine import trainer as ttr
+    from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
+    from pvpuformer_tpu_torch.engine.train_step import _train_noise, train_step
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+
+    mcfg = cfg.model
+    depth = mcfg.backbone.depth
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+    tx = make_optimizer(model, "adam", lr=5e-5)
+    hw = mcfg.backbone.img_size[0]
+    batch = train_batch(b, hw, mcfg.num_max_points)
+    trainer = ttr.Trainer(model, cfg, tx, _Repeat(batch, 3), device=dev,
+                          seed=seed, log_every=1000)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step_ms, losses, iters = [], [], []
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = train_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(out[0]["loss"]))
+        iters.append(kw["num_iters"])
+        return out
+
+    ttr.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        trainer.training(0)
+    finally:
+        ttr.train_step = train_step
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rounds = sum(len(t) for t in plan)
+    boxes = sum(t.count(1) for t in plan)
+    want = {"fused_attention": depth * rounds,
+            "fused_attention_bwd": depth * rounds,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "fused_ln_mlp": depth * rounds, "fused_ln_mlp_bwd": depth * rounds,
+            "minplus_rows": sum(len(t) - 1 for t in plan),
+            "cc_labels": boxes, "component_max": boxes}
+    changed = sum(not torch.equal(p, before[n])
+                  for n, p in model.named_parameters())
+    del before
+    _log(f"  batch {b}, num_iters {iters}, prompt types {plan}: losses "
+         f"{[round(x, 4) for x in losses]}, ms per step "
+         f"{[round(x, 1) for x in step_ms]} (the first includes warm-up), "
+         f"peak memory {peak_gb:.2f} GiB, {changed} of "
+         f"{len(list(model.parameters()))} parameter tensors changed ({card})")
+    _log(f"  launches {counts} expected {want}")
+    if iters != [1, 2, 3] or not np.isfinite(losses).all() or not changed:
+        raise AssertionError("training path: bad num_iters, loss or update")
+    if counts != want:
+        raise AssertionError("a kernel was launched a different number of "
+                             "times than the training path calls it")
+
+    gen = lambda: torch.Generator().manual_seed(seed)  # noqa: E731
+    thr = torch.tensor([0.4, 0.375, 0.425], device=dev)
+    noise_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        _train_noise(cfg, gen(), b, hw, hw, 3)
+        noise_ms.append((time.perf_counter() - t) * 1e3)
+    # one more 3-round step under the profiler: device-busy share
+    train_step(model, tx, batch, gen(), thr, cfg=cfg, num_iters=3, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        train_step(model, tx, batch, gen(), thr, cfg=cfg, num_iters=3,
+                   device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    groups, device_ms, top = {}, 0.0, []
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        g = next((grp for grp, key in KERNEL_GROUPS if key in e.key),
+                 "other elementwise / reductions")
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        device_ms += us / 1e3
+        top.append((round(us / 1e3, 2), e.count, e.key[:90]))
+    _log(f"  profiled 3-round step: wall {wall:.1f} ms, device {device_ms:.1f}"
+         f" ms, busy share {device_ms / wall:.3f}; device ms by group "
+         f"{json.dumps({k: round(v, 2) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])})}; "
+         f"host noise draw {np.median(noise_ms):.1f} ms ({card})")
+    _log(f"  top device kernels (ms, calls, name): "
+         f"{json.dumps(sorted(top, reverse=True)[:12])}")
+    # one more step under torch's sync debug mode: count the host syncs
+    import traceback
+    syncs = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if "pvpuformer_tpu_torch" in f.filename]
+        where = (f"{frames[-1].filename.split('pvpuformer_tpu_torch/')[-1]}:"
+                 f"{frames[-1].lineno} {frames[-1].name}") if frames else \
+            f"{filename}:{lineno}"
+        syncs[where] = syncs.get(where, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            train_step(model, tx, batch, gen(), thr, cfg=cfg, num_iters=3,
+                       device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = shown
+    torch.cuda.synchronize()
+    _log(f"  host syncs in one 3-round step (sync debug mode 'warn'): "
+         f"{sum(syncs.values())} {json.dumps(syncs)}")
+    return counts
+
+
 # kernel-name substrings -> group, first match wins (profile_paths)
 KERNEL_GROUPS = (("cc (run_max_pass)", "run_max_pass"),
+                 ("attention backward kernel", "attention_bwd"),
                  ("attention kernel", "attention"),
                  ("LN+MLP kernel", "fc1_gelu"), ("LN+MLP kernel", "fc2_resid"),
+                 ("f32 products", "sgemm"), ("f32 products", "gemm_f32f32"),
                  ("min-plus kernel", "minplus"),
                  ("cuBLAS / cuDNN products", "gemm"),
+                 ("cuBLAS / cuDNN products", "nvjet"),   # cuBLASLt's kernels
                  ("cuBLAS / cuDNN products", "xmma"),
                  ("cuBLAS / cuDNN products", "cutlass"),
                  ("cuBLAS / cuDNN products", "conv"),
@@ -569,35 +917,44 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _log(f"[1/7] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/9] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda}")
 
     from pvpuformer_tpu_torch.ops import _build
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/7] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/9] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler")
         print(json.dumps({"profile": profile_paths(dev, smi), "card": smi}))
         return 0
 
-    _log("[3/7] kernels vs plain versions")
+    _log("[3/9] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/7] model parity, tiny config f32")
+    _log("[4/9] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/7] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/9] main path: ViT-B@448 bf16 click sessions")
     launches, model = phase_main(dev, smi)
-    _log("[6/7] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/9] prompt parity, tiny config f32, four prompt variants")
     phase_prompt_parity(dev)
-    _log("[7/7] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/9] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = phase_prompts(dev, smi, model)
-    for name in ("cc_labels", "component_max"):        # this slice's path
+    for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
+    del model
+    torch.cuda.empty_cache()
+    _log("[8/9] training parity, tiny config f32")
+    phase_train_parity(dev)
+    _log("[9/9] training path: ViT-B@448 bf16 Trainer steps")
+    train_launches = phase_train(dev, smi)
+    launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",
                             "pvpuformer_tpu/ops/fused_attention.py:83"),
+        "fused_attention_bwd": ("pvpuformer_tpu_torch/csrc/attention_bwd.cu",
+                                "pvpuformer_tpu/ops/fused_attention.py:97"),
         "flash_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",
                             "pvpuformer_tpu/ops/attention.py:39"),
         "minplus_rows": ("pvpuformer_tpu_torch/csrc/edt_minplus.cu",

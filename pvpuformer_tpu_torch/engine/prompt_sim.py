@@ -1,5 +1,6 @@
-"""Prompt synthesis for the box and scribble prompt sessions, batched and on
-the device (pvpuformer_tpu/engine/prompt_sim.py, the serving part).
+"""Prompt synthesis on the device, batched (pvpuformer_tpu/engine/prompt_sim.py):
+the box and scribble prompts of the prompt sessions and the click rounds of
+training.
 
   * `connected_regions_mask_batch` = max_connected_regions: the largest
     8-connected component unioned with every component covering more than
@@ -8,23 +9,28 @@ the device (pvpuformer_tpu/engine/prompt_sim.py, the serving part).
     mask (or of the gt with `as_allmask`), optionally jittered.
   * `synth_scribbles` = cal_scribble: a Bezier curve through control points
     drawn row-wise inside the dominant gt region.
+  * `next_clicks` = get_next_points (training): per sample, the exact EDT
+    of the FN / FP error masks, a uniform random click inside the
+    `dist > max/2` region of the larger one, written to the first free slot
+    of its half; `update_ed_mask` writes that error mask into the slot's
+    P2CL label; `get_next_prompts` = get_next_promts (boxes + click).
 
 Every random draw is an argument (box jitter offsets, the scribble row
-jitter `u` and column Gumbel noise `g`): torch cannot reproduce
-`jax.random`, so a caller draws the noise and a test can pass JAX's own.
-Functions are batched over the leading dimension where the JAX package
-vmaps a per-sample function. Training's `next_clicks`, `update_ed_mask` and
-`get_next_prompts` are not ported yet.
+jitter `u` and column Gumbel noise `g`, the click Gumbel noise): torch
+cannot reproduce `jax.random`, so a caller draws the noise and a test can
+pass JAX's own. Functions are batched over the leading dimension where the
+JAX package vmaps a per-sample function.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.cc import cc_labels, component_max
+from ..ops.edt import squared_edt_pair
 
 
 def _first_true(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -137,8 +143,10 @@ def synth_boxes(gt: torch.Tensor, fn: torch.Tensor, fp: torch.Tensor,
     b, twon, _ = points.shape
     n = twon // 2
     dev = points.device
-    cap = torch.as_tensor(n if n_dyn is None else n_dyn, dtype=torch.int32,
-                          device=dev)
+    # the default stays a Python int: a device tensor made from a host
+    # int is a copy that syncs the host (one per box round in training)
+    cap = n if n_dyn is None else torch.as_tensor(n_dyn, dtype=torch.int32,
+                                                  device=dev)
     orders = points[:, :, 2]
     slots = torch.arange(n, device=dev)
 
@@ -249,3 +257,106 @@ def synth_scribbles(gt: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
     bern = _bernstein_on(u.shape[1], num_samples, gt.device)
     masks = connected_regions_mask_batch(gt > 0.5)
     return _synth_scribble_one(masks, u, g, bern)
+
+
+# ---------------------------------------------------------------------------
+# next click (get_next_points, trainer.py:615-703)
+# ---------------------------------------------------------------------------
+
+def _first_free_slot(orders: torch.Tensor, fallback: int) -> torch.Tensor:
+    """(B, n) orders -> (B,) first index with order < 0, else `fallback`
+    (trainer.py:641-652)."""
+    free = orders < 0
+    return torch.where(free.any(-1), _first_true(free),
+                       fallback).to(torch.int32)
+
+
+class ClickInfo(NamedTuple):
+    has_click: torch.Tensor    # (B,) bool
+    is_positive: torch.Tensor  # (B,) bool
+    y: torch.Tensor            # (B,) int32
+    x: torch.Tensor            # (B,) int32
+    slot: torch.Tensor         # (B,) int32
+    fn_mask: torch.Tensor      # (B, H, W) bool
+    fp_mask: torch.Tensor      # (B, H, W) bool
+
+
+def next_clicks(pred: torch.Tensor, gt: torch.Tensor, points: torch.Tensor,
+                gumbel: torch.Tensor, pred_thresh: float = 0.49
+                ) -> Tuple[torch.Tensor, ClickInfo]:
+    """Batched get_next_points (trainer.py:615-654).
+
+    pred: (B, H, W) probabilities; gt: (B, H, W); points: (B, 2N, 3);
+    gumbel: (B, H, W) Gumbel noise, the uniform draw of the click inside
+    the inner region. The EDTs of all 2B error masks run as one min-plus
+    call (chunk=None, as JAX). Returns (updated points, a new
+    tensor; ClickInfo for the ed-mask update)."""
+    b, twon, _ = points.shape
+    n = twon // 2
+    w = pred.shape[-1]
+    gtm = gt > 0.5
+    fn = gtm & (pred < pred_thresh)
+    fp = ~gtm & (pred > pred_thresh)
+    d_fn, d_fp = squared_edt_pair(fn, fp, chunk=None)
+    fn_max = d_fn.amax((1, 2))
+    fp_max = d_fp.amax((1, 2))
+    is_positive = fn_max > fp_max
+    d = torch.where(is_positive[:, None, None], d_fn, d_fp)
+    # linear-distance threshold dt > max/2 <=> squared > max^2/4
+    inner = d > (torch.maximum(fn_max, fp_max) / 4.0)[:, None, None]
+    has_click = inner.flatten(1).any(1)
+    score = torch.where(inner, gumbel, float("-inf"))
+    flat = torch.argmax(score.flatten(1), 1)
+    y = (flat // w).to(torch.int32)
+    x = (flat % w).to(torch.int32)
+
+    orders = points[:, :, 2]
+    slot_pos = _first_free_slot(orders[:, :n], n - 1)
+    slot_neg = _first_free_slot(orders[:, n:], n - 1) + n
+    slot = torch.where(is_positive, slot_pos, slot_neg)
+
+    order = orders.amax(1).clamp_min(0.0) + 1.0
+    row = torch.stack([y.float(), x.float(), order], -1)       # (B, 3)
+    bidx = torch.arange(b, device=points.device)
+    sl = slot.long()
+    new_rows = torch.where(has_click[:, None], row, points[bidx, sl])
+    points = points.clone()
+    points[bidx, sl] = new_rows
+    return points, ClickInfo(has_click, is_positive, y, x, slot, fn, fp)
+
+
+def update_ed_mask(ed_mask: torch.Tensor, info: ClickInfo) -> torch.Tensor:
+    """ed_mask_label[b, slot] = fn (positive) / fp (negative) for samples
+    that produced a click (trainer.py:686-702). ed_mask: (B, H, W, 2N) bool."""
+    err = torch.where(info.is_positive[:, None, None], info.fn_mask,
+                      info.fp_mask)                              # (B, H, W)
+    # a comparison, not F.one_hot, which checks its input's range on the host
+    slots = torch.arange(ed_mask.shape[-1], device=ed_mask.device)
+    onehot = info.slot.long()[:, None] == slots
+    sel = onehot[:, None, None, :] & info.has_click[:, None, None, None]
+    return torch.where(sel, err[..., None], ed_mask)
+
+
+def get_next_prompts(pred: torch.Tensor, gt: torch.Tensor,
+                     points: torch.Tensor, ed_mask: torch.Tensor,
+                     gumbel: Optional[torch.Tensor],
+                     offsets: Optional[torch.Tensor],
+                     pred_thresh: float = 0.49, as_allmask: bool = False,
+                     jitter_box: bool = True, update_points: bool = True):
+    """One round of prompt simulation (get_next_promts, trainer.py:703-768):
+    boxes from the current error masks, the next click and the ed-mask
+    labels. `gumbel` (B, H, W) is the click noise, `offsets` (B, 4) the box
+    jitter. With `update_points=False` (the click_indx == 0 path,
+    trainer.py:370-376) only the boxes are made: no click, no EDT.
+    Returns (points, boxes (B, 5) int32, ed_mask)."""
+    if not update_points:
+        gtm = gt > 0.5
+        fn = gtm & (pred < pred_thresh)
+        fp = ~gtm & (pred > pred_thresh)
+        boxes = synth_boxes(gt, fn, fp, points, offsets,
+                            as_allmask=as_allmask, jitter=jitter_box)
+        return points, boxes, ed_mask
+    new_points, info = next_clicks(pred, gt, points, gumbel, pred_thresh)
+    boxes = synth_boxes(gt, info.fn_mask, info.fp_mask, points, offsets,
+                        as_allmask=as_allmask, jitter=jitter_box)
+    return new_points, boxes, update_ed_mask(ed_mask, info)

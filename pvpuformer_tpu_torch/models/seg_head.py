@@ -1,5 +1,7 @@
 """SegFormer-style all-MLP head with the P2CL cosine branch
-(pvpuformer_tpu/models/seg_head.py). Inference only: dropout is off."""
+(pvpuformer_tpu/models/seg_head.py). Dropout is off, in inference and in
+training alike: the JAX train step passes no dropout key
+(pvpuformer_tpu/engine/train_step.py:113-114), so its head never drops."""
 from __future__ import annotations
 
 import dataclasses

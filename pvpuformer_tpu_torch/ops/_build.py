@@ -32,6 +32,7 @@ _F = ctypes.c_float
 # C entry point -> argument types; every function returns cudaError_t (int)
 SIGNATURES = {
     "pvpu_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "pvpu_attention_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     "pvpu_minplus_rows": [_P, _P, _I, _I, _P],
     "pvpu_ln_fc1_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pvpu_fc2_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

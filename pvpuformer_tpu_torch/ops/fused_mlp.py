@@ -6,6 +6,12 @@ bias / GELU math. The kernel (csrc/fused_mlp.cu, two launches) serves bf16
 only, with tanh GELU, as on the TPU. An f32 input takes the plain ops with
 exact-erf GELU: that is the JAX function's own contract by dtype
 (fused_mlp.py:132-138), a semantic route and not a failure fallback.
+
+`fused_ln_mlp` is a `torch.autograd.Function`. Its backward is autograd
+through a recompute of the plain version, as `_fused_bwd` (fused_mlp.py:
+102-107): the recompute rounds where `_xla_ref` rounds (y and h in the input
+dtype, products of those values accumulated in f32), so bf16 gradients get
+JAX's rounding points.
 """
 from __future__ import annotations
 
@@ -60,18 +66,41 @@ def _launch(x2d, gamma, beta, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     return out
 
 
+class _FusedLnMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, gamma, beta, w1, b1, w2, b2, eps: float):
+        ctx.eps = eps
+        ctx.save_for_backward(x2d, gamma, beta, w1, b1, w2, b2)
+        if x2d.dtype != torch.bfloat16 or x2d.device.type != "cuda":
+            return fused_ln_mlp_plain(x2d, gamma, beta, w1, b1, w2, b2, eps)
+        out = _launch(x2d, gamma, beta, w1, b1, w2, b2, eps)
+        fused_ln_mlp.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:7]
+        res = [x.detach().requires_grad_(n)
+               for x, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = fused_ln_mlp_plain(*res, ctx.eps)
+        got = iter(torch.autograd.grad(
+            out, [x for x, n in zip(res, need) if n], g))
+        if g.is_cuda and g.dtype == torch.bfloat16:
+            fused_ln_mlp.bwd_launches += 1
+        return (*(next(got) if n else None for n in need), None)
+
+
 def fused_ln_mlp(x: torch.Tensor, ln, mlp, eps: float = 1e-6) -> torch.Tensor:
-    """x (..., D) -> x + mlp(layer_norm(x)). `ln` has scale/bias, `mlp` has
-    fc1/fc2 with (in, out) weights. bf16 on CUDA launches the kernel; bf16 on
-    the CPU, and f32 anywhere, take the plain version."""
+    """x (..., D) -> x + mlp(layer_norm(x)), differentiable. `ln` has
+    scale/bias, `mlp` has fc1/fc2 with (in, out) weights. bf16 on CUDA
+    launches the kernel; bf16 on the CPU, and f32 anywhere, take the plain
+    version. The backward recomputes through the plain version."""
     d = x.shape[-1]
-    args = (x.reshape(-1, d), ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b,
-            mlp.fc2.w, mlp.fc2.b, eps)
-    if x.dtype != torch.bfloat16 or x.device.type != "cuda":
-        return fused_ln_mlp_plain(*args).reshape(x.shape)
-    out = _launch(*args)
-    fused_ln_mlp.launches += 1
+    out = _FusedLnMlp.apply(x.reshape(-1, d), ln.scale, ln.bias, mlp.fc1.w,
+                            mlp.fc1.b, mlp.fc2.w, mlp.fc2.b, eps)
     return out.reshape(x.shape)
 
 
-fused_ln_mlp.launches = 0
+fused_ln_mlp.launches = 0        # forward kernel calls (two launches each)
+fused_ln_mlp.bwd_launches = 0    # bf16 CUDA backward recomputes (plain ops)

@@ -13,7 +13,13 @@ version's rounding points; the flash entry rounds P before normalizing, its
 plain version after); min-plus bit-exact; LN+MLP bf16 atol 0.06 / rtol 0.05
 as the JAX kernel's own test, at its operand scale (weights N(0, 0.05));
 the two CC kernels bit-exact (integer max); tiny f32 prompt sessions on the
-card vs the same sessions on the CPU: identical clicks, IoU within 1e-5."""
+card vs the same sessions on the CPU: identical clicks, IoU within 1e-5.
+The attention backward: f32 1e-4, bf16 atol 1e-2 (~2.5x the error measured
+on an H100 at the training shapes, 3.9e-3); a bf16 ViT block's parameter
+gradients on the card vs the CPU within 2e-2 of each gradient's largest
+entry (~5x the measured 4e-3); a tiny f32 train step on the card vs the CPU
+as chip_smoke.py phase 8 (loss 1e-4, gradients 1e-4 x max(max |g|, 1),
+parameters 1e-6 after SGD)."""
 import dataclasses
 import types
 
@@ -223,3 +229,75 @@ def test_prompt_session_cuda_matches_cpu(cuda, mode, multi):
         pred.run_clicks(3)
         clicks.append(pred.clicks)
     np.testing.assert_array_equal(clicks[0], clicks[1])
+
+
+BWD_CASES = [((128, 196, 12, 64), torch.bfloat16), ((32, 784, 12, 64),
+             torch.bfloat16), ((2, 100, 3, 32), torch.float32),
+             ((1, 70, 1, 128), torch.float32), ((2, 2, 49, 2, 16),
+                                                 torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dt", BWD_CASES)
+def test_attention_bwd_kernel_matches_plain(cuda, shape, dt):
+    r = np.random.default_rng(6)
+    q, k, v, g = (_t(r.normal(size=shape), dt, cuda) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    n0 = fused_attention.fused_attention.bwd_launches
+    got = fused_attention.launch_attention_bwd(q, k, v, g, scale)
+    assert fused_attention.fused_attention.bwd_launches == n0 + 1
+    want = fused_attention.fused_attention_bwd_plain(q, k, v, g, scale)
+    tol = (1e-2, 0.0) if dt == torch.bfloat16 else (1e-4, 1e-4)
+    for a, b in zip(got, want):
+        assert a.dtype == dt and a.shape == q.shape
+        _cmp(a, b, *tol)
+    # through autograd: the kernel, not the plain version
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fused_attention.fused_attention(qg, kg, vg, scale)
+    auto = torch.autograd.grad(out, (qg, kg, vg), g)
+    assert fused_attention.fused_attention.bwd_launches == n0 + 2
+    for a, b in zip(auto, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_raises_outside_its_envelope(cuda):
+    q = torch.zeros(1, 8, 2, 24, device=cuda)
+    with pytest.raises(ValueError, match="head dim 24"):
+        fused_attention.launch_attention_bwd(q, q, q, q, 0.2)
+
+
+@pytest.mark.cuda
+def test_vit_block_bf16_grads_reach_every_parameter(cuda):
+    """Regression: the kernels' wrappers returned tensors without a grad_fn,
+    so a bf16 backward on the card stopped at the last block and every
+    backbone weight got no gradient, with no error."""
+    from pvpuformer_tpu_torch.models import vit
+    blk = vit.Block(768, 12, 4.0, True, torch.Generator().manual_seed(1))
+    x = torch.randn(8, 196, 768, generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for where in ("cpu", cuda):
+        b = vit.Block(768, 12, 4.0, True)
+        b.load_state_dict(blk.state_dict())
+        b.requires_grad_(True)
+        b.to(where)
+        xx = x.to(where, torch.bfloat16).requires_grad_()
+        n0 = (fused_attention.fused_attention.bwd_launches,
+              fused_mlp.fused_ln_mlp.bwd_launches)
+        vit.block_forward(b, xx, 12, 1e-6).float().square().mean().backward()
+        grads[str(where)] = {n: p.grad for n, p in b.named_parameters()}
+        grads[str(where)]["x"] = xx.grad
+    assert (fused_attention.fused_attention.bwd_launches,
+            fused_mlp.fused_ln_mlp.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    for n, gc in grads["cpu"].items():
+        gg = grads[str(cuda)][n]
+        assert gg is not None, f"{n}: no gradient on the card"
+        scale = float(gc.float().abs().max())
+        err = float((gg.float().cpu() - gc.float()).abs().max())
+        assert err <= 2e-2 * scale, (n, err, scale)
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_cuda_matches_cpu(cuda):
+    import chip_smoke
+    chip_smoke.phase_train_parity(cuda)

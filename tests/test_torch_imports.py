@@ -18,6 +18,10 @@ import pvpuformer_tpu_torch.utils.serialization
 import pvpuformer_tpu_torch.ops.edt, pvpuformer_tpu_torch.ops.fused_mlp
 import pvpuformer_tpu_torch.ops.cc, pvpuformer_tpu_torch.ops.rasterize
 import pvpuformer_tpu_torch.engine.prompt_sim
+import pvpuformer_tpu_torch.engine.losses, pvpuformer_tpu_torch.engine.metrics
+import pvpuformer_tpu_torch.engine.optimizer
+import pvpuformer_tpu_torch.engine.train_step
+import pvpuformer_tpu_torch.engine.trainer
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton'))
 assert not bad, bad
