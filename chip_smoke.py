@@ -13,7 +13,13 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      error beside its tolerance, the kernel time beside the plain time, the
      bound and, for attention, the time of torch's
      scaled_dot_product_attention, forward or backward (timed only, never
-     used);
+     used) and the kernel's ratio to it, and at the bf16 attention forward
+     shapes the device time of kernel and SDPA (20 calls in a CUDA graph)
+     beside the CUDA-event time of eager calls, which includes the Python
+     wrapper's host cost; the fused attention forward is timed with its
+     row-statistics write (as the training path runs it), the backward
+     from those statistics (its eager time is its device time: the
+     kernel outlasts its wrapper at the training shapes);
   4. model parity: a 5-click f32 session at a tiny config on CUDA (kernels)
      vs on the CPU (plain versions), same port weights: identical clicks,
      IoU within 1e-5;
@@ -97,6 +103,28 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int = 20) -> float:
+    """Device time per call: `iters` calls captured in one CUDA graph and
+    replayed between two CUDA events, so the kernels run back to back with
+    no host launch cost between them (which _time_ms includes once a
+    kernel is shorter than its Python wrapper)."""
+    import torch
+    fn()                                   # kernels loaded before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _bound(ops: float, rate: float, nbytes: float):
     """The least time (ms) the card could take: the larger of the operations
     over their peak rate and the bytes over the memory rate."""
@@ -149,16 +177,22 @@ def phase_kernels(dev):
 
     g = torch.Generator().manual_seed(0)
     # name -> max error over all cases; (ms, plain ms, bound ms, bound by,
-    # library ms) at the summary shape
+    # library ms, device ms, library device ms) at the summary shape
     err, times = {}, {}
 
-    def record(name, r, main_shape, bound, library_ms=None):
+    def record(name, r, main_shape, bound, library_ms=None, device=None):
         err[name] = max(err.get(name, 0.0), r[0])
         _log(f"    bound {bound[0] * 1e3:.2f} us ({bound[1]})"
              + ("" if library_ms is None else
-                f"  library (SDPA) {library_ms:.4f} ms"))
+                f"  library (SDPA) {library_ms:.4f} ms, kernel / SDPA "
+                f"{r[1] / library_ms:.2f}x"))
+        kern_dev, lib_dev = device or (None, None)
+        if kern_dev is not None:
+            _log(f"    device time (CUDA graph): kernel {kern_dev:.4f} ms, "
+                 f"SDPA {lib_dev:.4f} ms, kernel / SDPA "
+                 f"{kern_dev / lib_dev:.2f}x")
         if main_shape:
-            times[name] = (*r[1:], *bound, library_ms)
+            times[name] = (*r[1:], *bound, library_ms, kern_dev, lib_dev)
 
     # (B, N, H, D): the click path's window blocks 8 windows x 12 heads,
     # global 2 x 12 heads, in bf16 and f32; the training path's at batch 32
@@ -167,7 +201,9 @@ def phase_kernels(dev):
     # global shape in bf16. bf16 limits are ~2-3x each entry's measured
     # error (PERF.md, Findings)
     bf16_atol = {"fused_attention": 5e-3, "flash_attention": 1.5e-2}
-    both = (("fused_attention", fu.fused_attention, fu.fused_attention_plain),
+    both = (("fused_attention",
+             lambda q, k, v: fu.launch_attention_stats(q, k, v, 1.0 / 8.0)[0],
+             fu.fused_attention_plain),
             ("flash_attention", fa.flash_attention, fa.flash_attention_plain))
     for label, shape, dts, impls in (
             ("window", (8, 196, 12, 64), (torch.bfloat16, torch.float32),
@@ -185,21 +221,25 @@ def phase_kernels(dev):
                            PEAK_BF16 if dt == torch.bfloat16 else
                            PEAK_CUDA_CORE, 4.0 * b * h * n * d * elt)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, scale=1.0 / 8.0))
+            bf16 = dt == torch.bfloat16
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, scale=1.0 / 8.0)
+            lib_ms = _time_ms(sdpa)
+            lib_dev = _device_ms(sdpa) if bf16 else None
             for name, kern, plain in impls:
-                tol = ((bf16_atol[name], 0.0) if dt == torch.bfloat16
-                       else (1e-4, 1e-4))
-                r = _compare(f"{name} {label} {tuple(shape)} {dt}",
-                             lambda: kern(q, k, v),
+                tol = (bf16_atol[name], 0.0) if bf16 else (1e-4, 1e-4)
+                call = lambda: kern(q, k, v)  # noqa: E731
+                r = _compare(f"{name} {label} {tuple(shape)} {dt}", call,
                              lambda: plain(q, k, v, 1.0 / 8.0), *tol)
-                record(name, r, label == "global" and dt == torch.bfloat16,
-                       bound, lib_ms)
+                record(name, r, label == "global" and bf16, bound, lib_ms,
+                       (_device_ms(call) if bf16 else None, lib_dev))
     # the attention backward at the training shapes, batch 32 (window
     # blocks 32 x 4 windows x 12 heads, global blocks 32 x 12 heads), bf16,
     # and at a small shape in f32; the bf16 limit is ~2.5x the error
     # measured on an H100 (3.9e-3), f32 as the forward. The bound counts
-    # the five N x N x D products of the function (S, dV, dP, dQ, dK)
+    # the five N x N x D products of the function (S, dV, dP, dQ, dK).
+    # Kernel and plain version both start from the forward kernel's row
+    # statistics, as the training path's backward does
     for label, shape, dt in (("window", (128, 196, 12, 64), torch.bfloat16),
                              ("global", (32, 784, 12, 64), torch.bfloat16),
                              ("small", (2, 100, 3, 32), torch.float32)):
@@ -217,12 +257,14 @@ def phase_kernels(dev):
                           for x in (q, k, v))
             ot = F.scaled_dot_product_attention(qt, kt, vt, scale=sc)
             dot = do.transpose(1, 2).contiguous()
-            lib_ms = _time_ms(lambda: torch.autograd.grad(
-                ot, (qt, kt, vt), dot, retain_graph=True))
-            del ot
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                ot, (qt, kt, vt), dot, retain_graph=True)
+            lib_ms = _time_ms(sdpa_bwd)
+            del ot, sdpa_bwd
+        st = fu.launch_attention_stats(q, k, v, sc)[1]
         r = _compare(f"fused_attention_bwd {label} {tuple(shape)} {dt}",
-                     lambda: fu.launch_attention_bwd(q, k, v, do, sc),
-                     lambda: fu.fused_attention_bwd_plain(q, k, v, do, sc),
+                     lambda: fu.launch_attention_bwd(q, k, v, do, sc, st),
+                     lambda: fu.fused_attention_bwd_plain(q, k, v, do, sc, st),
                      *((1e-2, 0.0) if bf16 else (1e-4, 1e-4)))
         record("fused_attention_bwd", r, label == "global", bound, lib_ms)
     # the click path's flip batch (2 masks x 448 rows, both error masks),
@@ -968,12 +1010,14 @@ def main() -> int:
     }
     kernels = []
     for name, (src, rep) in meta.items():
-        err, ms, plain_ms, bound_ms, bound_by, library_ms = res[name]
+        err, ms, plain_ms, bound_ms, bound_by, library_ms, dev_ms, lib_dev = \
+            res[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-                        "bound_by": bound_by, "library_ms": library_ms})
+                        "bound_by": bound_by, "library_ms": library_ms,
+                        "device_ms": dev_ms, "library_device_ms": lib_dev})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

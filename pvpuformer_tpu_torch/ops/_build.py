@@ -29,10 +29,20 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+class Ten(ctypes.Structure):
+    """csrc/attention_tiles.cuh `Ten`, passed by value: a strided
+    (B, N, H, D) tensor, element (b, n, h, d) at ptr + b*sb + n*sn + h*sh + d
+    (strides in elements)."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("sb", ctypes.c_longlong),
+                ("sn", ctypes.c_longlong), ("sh", ctypes.c_longlong)]
+
+
 # C entry point -> argument types; every function returns cudaError_t (int)
 SIGNATURES = {
-    "pvpu_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    "pvpu_attention_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    "pvpu_attention_fwd": [Ten] * 4 + [_P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "pvpu_attention_bwd": [Ten] * 7 + [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pvpu_minplus_rows": [_P, _P, _I, _I, _P],
     "pvpu_ln_fc1_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pvpu_fc2_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -15,7 +15,10 @@ as the JAX kernel's own test, at its operand scale (weights N(0, 0.05));
 the two CC kernels bit-exact (integer max); tiny f32 prompt sessions on the
 card vs the same sessions on the CPU: identical clicks, IoU within 1e-5.
 The attention backward: f32 1e-4, bf16 atol 1e-2 (~2.5x the error measured
-on an H100 at the training shapes, 3.9e-3); a bf16 ViT block's parameter
+on an H100 at the training shapes, 3.9e-3), and bit-identical on repeat (no
+atomics); the fused forward's row statistics 1e-4 (f32 both, scores summed
+in another order); both forward entries fed straight from `qkv` views at
+the limits above; a bf16 ViT block's parameter
 gradients on the card vs the CPU within 2e-2 of each gradient's largest
 entry (~5x the measured 4e-3); a tiny f32 train step on the card vs the CPU
 as chip_smoke.py phase 8 (loss 1e-4, gradients 1e-4 x max(max |g|, 1),
@@ -70,6 +73,52 @@ def test_attention_kernel_matches_plain(cuda, entry, shape):
         got = kern(q, k, v)
         assert kern.launches == n0 + 1 and got.dtype == dt
         _cmp(got, plain(q, k, v, shape[-1] ** -0.5), *tol)
+
+
+QKV_CASES = [(entry, n, d) for entry in ("fused", "flash")
+             for n in (1, 17, 100, 196, 784) for d in (16, 32, 64, 80, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,n,d", QKV_CASES)
+def test_attention_kernel_reads_qkv_views(cuda, entry, n, d):
+    """Both entries take q, k, v straight from the `qkv[:, :, i]` slices of
+    models/vit.py (addressed in place, no copy) and return a contiguous
+    (B, N, H, D) tensor, so the block's reshape is a view."""
+    mod, fn = ((fused_attention, "fused_attention") if entry == "fused"
+               else (attention, "flash_attention"))
+    kern, plain = getattr(mod, fn), getattr(mod, fn + "_plain")
+    r = np.random.default_rng(n + d)
+    bf16_atol = 5e-3 if entry == "fused" else 1.5e-2
+    for dt, tol in ((torch.float32, (1e-4, 1e-4)),
+                    (torch.bfloat16, (bf16_atol, 0.0))):
+        qkv = _t(r.normal(size=(2, n, 3, 2, d)), dt, cuda)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        assert all(fused_attention.bnhd_strides(x) is not None
+                   for x in (q, k, v))
+        got = kern(q, k, v)
+        assert got.is_contiguous() and got.shape == q.shape
+        assert got.reshape(2, n, 2 * d).data_ptr() == got.data_ptr()
+        _cmp(got, plain(q, k, v, d ** -0.5), *tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dt", [((2, 784, 2, 64), torch.bfloat16),
+                                      ((3, 100, 2, 80), torch.bfloat16),
+                                      ((2, 17, 3, 32), torch.float32)])
+def test_attention_stats_match_plain(cuda, shape, dt):
+    """The fused forward's (m, l) against the plain forward's, f32 both:
+    1e-4 relative (scores summed in another order; ex2.approx on bf16)."""
+    r = np.random.default_rng(9)
+    q, k, v = (_t(r.normal(size=shape), dt, cuda) for _ in range(3))
+    sc = shape[-1] ** -0.5
+    out, st = fused_attention.launch_attention_stats(q, k, v, sc)
+    want_o, want_st = fused_attention.fused_attention_plain(
+        q, k, v, sc, return_stats=True)
+    assert st.shape == want_st.shape and st.dtype == torch.float32
+    _cmp(st, want_st, 1e-4, 1e-4)
+    _cmp(out, want_o, *((5e-3, 0.0) if dt == torch.bfloat16
+                        else (1e-4, 1e-4)))
 
 
 @pytest.mark.cuda
@@ -234,7 +283,8 @@ def test_prompt_session_cuda_matches_cpu(cuda, mode, multi):
 BWD_CASES = [((128, 196, 12, 64), torch.bfloat16), ((32, 784, 12, 64),
              torch.bfloat16), ((2, 100, 3, 32), torch.float32),
              ((1, 70, 1, 128), torch.float32), ((2, 2, 49, 2, 16),
-                                                 torch.bfloat16)]
+                                                 torch.bfloat16),
+             ((4, 256, 4, 80), torch.bfloat16), ((1, 70, 2, 80), torch.float32)]
 
 
 @pytest.mark.cuda
@@ -258,6 +308,30 @@ def test_attention_bwd_kernel_matches_plain(cuda, shape, dt):
     assert fused_attention.fused_attention.bwd_launches == n0 + 2
     for a, b in zip(auto, got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_attention_bwd_bit_identical_on_repeat(cuda, dt):
+    """No atomics: two backward calls through autograd, from q, k, v taken
+    as `qkv` views, give the same bits, and agree with the plain backward."""
+    r = np.random.default_rng(12)
+    b, n, h, d = 4, 196, 3, 64
+    base = _t(r.normal(size=(b, n, 3, h, d)), dt, cuda)
+    g = _t(r.normal(size=(b, n, h, d)), dt, cuda)
+    runs = []
+    for _ in range(2):
+        qkv = base.clone().requires_grad_()
+        out = fused_attention.fused_attention(qkv[:, :, 0], qkv[:, :, 1],
+                                              qkv[:, :, 2])
+        (dqkv,) = torch.autograd.grad(out, qkv, g)
+        runs.append(dqkv)
+    assert torch.equal(runs[0], runs[1])
+    want = fused_attention.fused_attention_bwd_plain(
+        base[:, :, 0], base[:, :, 1], base[:, :, 2], g, d ** -0.5)
+    tol = (1e-2, 0.0) if dt == torch.bfloat16 else (1e-4, 1e-4)
+    for i in range(3):
+        _cmp(runs[0][:, :, i], want[i], *tol)
 
 
 @pytest.mark.cuda
