@@ -19,7 +19,12 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      wrapper's host cost; the fused attention forward is timed with its
      row-statistics write (as the training path runs it), the backward
      from those statistics (its eager time is its device time: the
-     kernel outlasts its wrapper at the training shapes);
+     kernel outlasts its wrapper at the training shapes); LN+MLP at the
+     click and training rows also bit-identical on repeat, with its device
+     time beside that of the unfused chain of PyTorch calls (cuBLAS
+     products, timed only), and its bf16 backward at the training rows
+     against autograd through the plain version (one bf16 ulp of each
+     gradient's largest entry), timed beside it;
   4. model parity: a 5-click f32 session at a tiny config on CUDA (kernels)
      vs on the CPU (plain versions), same port weights: identical clicks,
      IoU within 1e-5;
@@ -176,11 +181,12 @@ def phase_kernels(dev):
     from pvpuformer_tpu_torch import nn
 
     g = torch.Generator().manual_seed(0)
-    # name -> max error over all cases; (ms, plain ms, bound ms, bound by,
-    # library ms, device ms, library device ms) at the summary shape
+    # name -> max error over all cases; the summary shape's times, bound
+    # and yardsticks (the JSON line's keys)
     err, times = {}, {}
 
-    def record(name, r, main_shape, bound, library_ms=None, device=None):
+    def record(name, r, main_shape, bound, library_ms=None, device=None,
+               yardstick="SDPA", extra=None):
         err[name] = max(err.get(name, 0.0), r[0])
         _log(f"    bound {bound[0] * 1e3:.2f} us ({bound[1]})"
              + ("" if library_ms is None else
@@ -189,10 +195,13 @@ def phase_kernels(dev):
         kern_dev, lib_dev = device or (None, None)
         if kern_dev is not None:
             _log(f"    device time (CUDA graph): kernel {kern_dev:.4f} ms, "
-                 f"SDPA {lib_dev:.4f} ms, kernel / SDPA "
+                 f"{yardstick} {lib_dev:.4f} ms, kernel / {yardstick} "
                  f"{kern_dev / lib_dev:.2f}x")
         if main_shape:
-            times[name] = (*r[1:], *bound, library_ms, kern_dev, lib_dev)
+            times[name] = {"ms": r[1], "plain_ms": r[2], "bound_ms": bound[0],
+                           "bound_by": bound[1], "library_ms": library_ms,
+                           "device_ms": kern_dev,
+                           "library_device_ms": lib_dev, **(extra or {})}
 
     # (B, N, H, D): the click path's window blocks 8 windows x 12 heads,
     # global 2 x 12 heads, in bf16 and f32; the training path's at batch 32
@@ -277,10 +286,16 @@ def phase_kernels(dev):
                _bound(2.0 * shape[0] * shape[1] ** 2, PEAK_CUDA_CORE,
                       8.0 * shape[0] * shape[1]))
     # operands at the JAX kernel test's scale (weights and biases N(0, 0.05)):
-    # the MLP term is then ~3x the residual, so dropping b1, b2, beta or one
-    # 32-deep weight chunk breaks the tolerance (PERF.md, Findings)
+    # the MLP term is then ~3x the residual, so dropping b1, b2, beta or 32
+    # rows of a weight breaks the tolerance (PERF.md, Findings)
     # rows: the click path's flip batch (2 x 784 tokens), the training
-    # path's batch 32 (32 x 784); the summary reports the click path's
+    # path's batch 32 (32 x 784); the summary reports the click path's.
+    # Beside the kernel: its device time and that of the unfused chain of
+    # PyTorch calls in bf16 (layer_norm, linear, gelu, linear + residual:
+    # cuBLAS products, timed only); at the training rows the backward
+    # (`fused_ln_mlp_bwd`, bf16 operands, f32 parameters as the training
+    # path has them) against autograd through the plain version, which is
+    # also its time's yardstick
     d, hid = 768, 3072
     ln, mlp = nn.Norm(d), nn.Mlp(d, hid)
     with torch.no_grad():
@@ -288,18 +303,38 @@ def phase_kernels(dev):
         ln.bias.normal_(0.0, 0.1, generator=g)
         for p in mlp.parameters():
             p.normal_(0.0, 0.05, generator=g)
+    params32 = [t.detach().to(dev) for t in (ln.scale, ln.bias, mlp.fc1.w,
+                                              mlp.fc1.b, mlp.fc2.w, mlp.fc2.b)]
     ln.to(dev, torch.bfloat16)
     mlp.to(dev, torch.bfloat16)
+    mlp_extra = {}
     for m in (1568, 32 * 784):
         x = torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
-        record("fused_ln_mlp", _compare(
-            f"fused_ln_mlp ({m},{d})->{hid} bf16",
-            lambda: fused_mlp.fused_ln_mlp(x, ln, mlp),
+        call = lambda: fused_mlp.fused_ln_mlp(x, ln, mlp)  # noqa: E731
+        r = _compare(
+            f"fused_ln_mlp ({m},{d})->{hid} bf16", call,
             lambda: fused_mlp.fused_ln_mlp_plain(
                 x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w,
-                mlp.fc2.b, 1e-6), 0.06, 0.05), m == 1568,
-            _bound(4.0 * m * d * hid, PEAK_BF16,
-                   2.0 * (2 * m * d + 2 * d * hid + hid + d) + 4.0 * 2 * d))
+                mlp.fc2.b, 1e-6), 0.06, 0.05)
+        if not torch.equal(call(), call()):
+            raise AssertionError("fused_ln_mlp: not bit-identical on repeat")
+        chain = lambda: ln_mlp_chain(x, ln, mlp)  # noqa: E731
+        dev_ms, chain_ms = _device_ms(call), _device_ms(chain)
+        mlp_extra[m] = (dev_ms, chain_ms)
+        record("fused_ln_mlp", r, m == 1568,
+               _bound(4.0 * m * d * hid, PEAK_BF16,
+                      2.0 * (2 * m * d + 2 * d * hid + hid + d) + 4.0 * 2 * d),
+               device=(dev_ms, chain_ms), yardstick="cuBLAS chain",
+               extra={"chain_device_ms": chain_ms})
+        del x
+    m = 32 * 784
+    x, gy = (torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
+             for _ in range(2))
+    bwd_ms, recompute_ms = phase_mlp_bwd(x, params32, gy)
+    times["fused_ln_mlp"].update(
+        device_ms_train=mlp_extra[m][0], chain_device_ms_train=mlp_extra[m][1],
+        bwd_ms_train=bwd_ms, recompute_bwd_ms_train=recompute_ms)
+    del x, gy
     # the CC kernels: bit-exact at the prompt path's (2, 448, 448) masks
     # (the error / gt masks of the flip batch), the training path's
     # (32, 448, 448) and at the edge cases
@@ -322,7 +357,53 @@ def phase_kernels(dev):
             lambda: cc.component_max_plain(mt, vals, iters), 0, 0,
             exact=True), main,
             _bound(iters * 60 * px, PEAK_CUDA_CORE, px * (1 + 4 + 4)))
-    return {name: (err[name], *times[name]) for name in err}
+    return {name: dict(times[name], max_abs_err=err[name]) for name in err}
+
+
+def ln_mlp_chain(x, ln, mlp):
+    """The LN+MLP half as a chain of PyTorch calls in x's dtype (cuBLAS
+    products): the yardstick of the fused kernel, never called by the
+    port."""
+    import torch.nn.functional as F
+    y = F.layer_norm(x, (x.shape[-1],), ln.scale, ln.bias, 1e-6)
+    h = F.gelu(F.linear(y, mlp.fc1.w.t(), mlp.fc1.b), approximate="tanh")
+    return x + F.linear(h, mlp.fc2.w.t(), mlp.fc2.b)
+
+
+def phase_mlp_bwd(x, params, gy):
+    """The bf16 LN+MLP backward at the training rows: `fused_ln_mlp_bwd`
+    against autograd through the plain version (the recompute the backward
+    ran before), each gradient within one bf16 ulp of its largest entry (as
+    tests/test_torch_mlp_bwd.py). Returns both times (ms per call)."""
+    import torch
+    from pvpuformer_tpu_torch.ops import fused_mlp
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+
+    def recompute():
+        return torch.autograd.grad(
+            fused_mlp.fused_ln_mlp_plain(*leaves, 1e-6), leaves, gy)
+
+    got = fused_mlp.fused_ln_mlp_bwd(x, *params, 1e-6, gy)
+    want = recompute()
+    report = {}
+    for name, a, w in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2",
+                           "db2"), got, want):
+        mx = float(w.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(mx)) - 7) if mx > 0 else 0.0
+        err = float((a.float() - w.float()).abs().max())
+        report[name] = (round(err / ulp, 3) if ulp else err,
+                        round(float((a != w).float().mean()), 5))
+        if a.dtype != w.dtype or err > ulp:
+            raise AssertionError(f"fused_ln_mlp_bwd {name}: error {err} "
+                                 f"above one bf16 ulp of the largest entry")
+    del got, want
+    ms = _time_ms(lambda: fused_mlp.fused_ln_mlp_bwd(x, *params, 1e-6, gy))
+    old_ms = _time_ms(recompute)
+    _log(f"  fused_ln_mlp_bwd {tuple(x.shape)} bf16: error in bf16 ulps of "
+         f"the largest entry, share of elements that differ: "
+         f"{json.dumps(report)} (tol 1 ulp) ok  backward {ms:.4f} ms  "
+         f"autograd through the plain version {old_ms:.4f} ms")
+    return ms, old_ms
 
 
 def cc_masks():
@@ -842,6 +923,9 @@ def _train_run(dev, card, cfg, seed, plan, b):
          f" ms, busy share {device_ms / wall:.3f}; device ms by group "
          f"{json.dumps({k: round(v, 2) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])})}; "
          f"host noise draw {np.median(noise_ms):.1f} ms ({card})")
+    _log(f"  f32 products group (sgemm / gemm_f32f32 kernels): "
+         f"{groups.get('f32 products', 0.0):.2f} ms of the step's "
+         f"{device_ms:.1f} device ms")
     _log(f"  top device kernels (ms, calls, name): "
          f"{json.dumps(sorted(top, reverse=True)[:12])}")
     # one more step under torch's sync debug mode: count the host syncs
@@ -1010,14 +1094,10 @@ def main() -> int:
     }
     kernels = []
     for name, (src, rep) in meta.items():
-        err, ms, plain_ms, bound_ms, bound_by, library_ms, dev_ms, lib_dev = \
-            res[name]
+        t = res[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-                        "bound_by": bound_by, "library_ms": library_ms,
-                        "device_ms": dev_ms, "library_device_ms": lib_dev})
+                        **t, "bound_us": t["bound_ms"] * 1e3})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

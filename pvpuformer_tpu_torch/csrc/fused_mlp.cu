@@ -1,190 +1,622 @@
 // Fused LayerNorm + MLP + residual for the ViT blocks (bf16):
 //   out = x + fc2(gelu_tanh(fc1(LN(x))))
 //
-// Replaces pvpuformer_tpu/ops/fused_mlp.py:_kernel (`fused_ln_mlp`).
-// Bound on the H100: at ViT-B@448 flip batch 2, x is (1568, 768) and the
-// weights (768, 3072) + (3072, 768): 2 x 7.4 GFLOP of bf16 products against
-// 9.4 MB of weights, so compute bound. The TPU kernel keeps both weight
-// matrices resident in VMEM; they do not fit in 227 KB of shared memory.
-// Design: two launches from this source, both 64x128 output tiles on 8 warps
-// with the products on the tensor cores (wmma, bf16 in, f32 accumulate) and
-// 32-deep K chunks of the weights staged through shared memory:
-//   (a) pvpu_ln_fc1_gelu: the block's 64 rows are layer-normed with f32
-//       statistics into shared memory as bf16 (64 x D), then
-//       h = gelu_tanh(y.W1 + b1) in f32, written as bf16 (1568 x 3072 = 9.6 MB,
-//       which stays in the 50 MB L2 for launch (b));
-//   (b) pvpu_fc2_residual: out = h.W2 + b2 + x in f32, cast to bf16.
+// Replaces pvpuformer_tpu/ops/fused_mlp.py:_kernel (`fused_ln_mlp`): LN
+// statistics in f32, y rounded to bf16 before fc1, h rounded to bf16 before
+// fc2, bias / GELU / residual in f32, one rounding at the output.
+//
+// Bound on the H100: x (M, D) with weights (D, Hd) and (Hd, D) is 4*M*D*Hd
+// operations of bf16 products: at the training path's (25088, 768) -> 3072
+// that is 237 GFLOP, 0.24 ms at the 989 TFLOP/s tensor-core peak, against
+// 0.05 ms of bytes; compute bound. The TPU kernel keeps both weight matrices
+// resident in VMEM; they do not fit in 227 KB of shared memory, so the
+// function is two launches here, with h (M, Hd) bf16 between them (it stays
+// in the 50 MB L2 at the click shape).
+//
+// Design (Hopper): the products run on wgmma (m64nNk16, bf16 in, f32
+// accumulators in registers) in two consumer warpgroups per block. Operand
+// tiles stream through shared-memory rings of 3-4 stages filled by TMA
+// (cp.async.bulk.tensor, 128-byte swizzle) from a ninth, producer warp: a
+// "full" mbarrier per stage counts the TMA bytes in, an "empty" one the
+// consumer warps out (each arrives once its products on the stage have
+// retired, wgmma.wait_group 1), so the producer keeps up to four tiles in
+// flight and no block-wide barrier sits in the K loop. The weights are
+// stored (in, out), so B is N-contiguous: wgmma's transposed-B form reads it
+// straight from the TMA tiles. Epilogues run from the accumulator registers
+// (no C tile in shared memory).
+//   (a) ln_fc1_gelu_kernel<BK>: a block layer-norms its 64 rows once (f32
+//       statistics) into shared memory as bf16 in the swizzled K-major
+//       layout wgmma reads: the A operand, resident for the whole K = D
+//       loop. It walks `tiles` column tiles of 128 (up to all of Hd, so
+//       one LayerNorm serves them all); warpgroup w takes tiles w, w + 2,
+//       ..., each with its own ring of W1 tiles (BK x 128) filled by
+//       producer lane w, and the two take turns at the products, so one's
+//       bias + tanh-GELU epilogue overlaps the other's products. The
+//       producer starts both rings before the LayerNorm. bf16x2 stores.
+//   (b) fc2_residual_kernel<BN>: h (128 x 64) and W2 (64 x BN) tiles
+//       through the ring, K = Hd; warpgroup w owns rows 64w..64w+63; bias
+//       and residual from registers. BN = 64 when 128 x 128 tiles would
+//       leave SMs idle (the click shape: 156 blocks instead of 78).
+// Every row past M is zero-filled by TMA (or by the LayerNorm) and masked at
+// the store. No atomics: the output is the same bits on every call.
+#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
+#include <cstdint>
+#include <mutex>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int TM = 64;    // rows per block
-constexpr int TN = 128;   // output columns per block
-constexpr int TKC = 32;   // K chunk
-constexpr int THREADS = 256;
+constexpr int CONSUMERS = 256;             // two warpgroups: the products
+constexpr int THREADS = CONSUMERS + 32;    // and one producer warp: the TMA
+constexpr int STAGES = 4;                  // (b)'s ring; (a) fits 3-4 a ring
+constexpr int SMEM_MAX = 232448;           // H100 shared memory per block
+constexpr int SMEM_EXTRA = 1024 + 256;     // 1024-byte alignment, barriers
+constexpr int LN_BARRIER = 1;              // named barrier of the consumers
+// (a)
+constexpr int A_BM = 64;                   // rows per block (resident A)
+constexpr int A_BN = 128;                  // columns per tile (one WG's)
+// (b)
+constexpr int B_BM = 128;                  // rows per block, 64 per WG
+constexpr int B_BK = 64;                   // h columns / W2 rows per stage
+constexpr int B_ATILE = B_BM * 128;        // h box (64 x 128), bytes
+constexpr int B_CHUNK = B_BK * 128;        // one 64-column W2 box, bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// --- mbarrier and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// wait until the phase of the given parity has completed; a tile that never
+// arrives (some 10 s) traps, so a fault surfaces as a launch failure and
+// not as a hung stream
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) break;
+    if (!start) start = clock64();
+    else if (clock64() - start > 20000000000ll) __trap();
+  }
+}
+// box at (column c0, row c1) of a 2-D tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// shared-memory matrix descriptor, 128-byte swizzle; lbo / sbo in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a wait
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define PVPU_ACC8(i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x N, f32) (+)= A (64 x 16, K-major) . B (16 x N, N-major: the
+// transposed-B form); scale_d = 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
+                                      uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : PVPU_ACC8(0), PVPU_ACC8(8), PVPU_ACC8(16), PVPU_ACC8(24),
+        PVPU_ACC8(32), PVPU_ACC8(40), PVPU_ACC8(48), PVPU_ACC8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : PVPU_ACC8(0), PVPU_ACC8(8), PVPU_ACC8(16), PVPU_ACC8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+#undef PVPU_ACC8
+
+// --- epilogue helpers --------------------------------------------------------
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffff, v, o);
   return v;
 }
-
-// Bs[TKC][TN] <- w[k0:k0+TKC, n0:n0+TN] of a row-major (K, ldw) matrix
-__device__ void load_b_chunk(bf16* Bs, const bf16* w, int k0, int n0, int ldw) {
-  constexpr int per_row = TN / 8;
-  for (int i = threadIdx.x; i < TKC * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    *reinterpret_cast<uint4*>(Bs + r * TN + c) =
-        *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * ldw + n0 + c);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float gelu_tanh(float v) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;\n"
+      : "=f"(t) : "f"(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+  return 0.5f * v * (1.0f + t);
+}
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(p[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
   }
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc[4] (warp's 16 x 64 slice) += A[16 rows][TKC] . Bs[TKC][64 cols]
-__device__ void mma_chunk(FragC* acc, const bf16* A, int lda, const bf16* Bs) {
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  FragA a;
-  FragB b;
-  for (int kk = 0; kk < TKC; kk += 16) {
-    wmma::load_matrix_sync(a, A + wm * 16 * lda + kk, lda);
-    for (int j = 0; j < 4; ++j) {
-      wmma::load_matrix_sync(b, Bs + kk * TN + wn * 64 + j * 16, TN);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
+// 1024-byte aligned start of the dynamic shared memory (swizzle atoms)
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  return smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 }
 
-__device__ void store_acc(float* C, FragC* acc) {
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(C + wm * 16 * TN + wn * 64 + j * 16, acc[j], TN,
-                            wmma::mem_row_major);
-}
+constexpr int LN_CHUNKS = 5;   // 16-byte chunks of a row per lane, D <= 1280
 
-__global__ void __launch_bounds__(THREADS)
-ln_fc1_gelu_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, const bf16* __restrict__ w1,
+template <int BK>
+__global__ void __launch_bounds__(THREADS, 1)
+ln_fc1_gelu_kernel(const __grid_constant__ CUtensorMap w1_map,
+                   const bf16* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta,
                    const float* __restrict__ b1, bf16* __restrict__ h, int M,
-                   int D, int Hd, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Y = reinterpret_cast<bf16*>(smem);             // TM x D
-  bf16* Bs = Y + TM * D;                                // TKC x TN
-  float* C = reinterpret_cast<float*>(Bs + TKC * TN);  // TM x TN
-  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+                   int D, int Hd, int tiles, int stages, float eps) {
+  constexpr int CHUNK = BK * 128;          // one 64-column TMA box, bytes
+  constexpr int STAGE = 2 * CHUNK;         // a BK x 128 tile of W1
+  // [ring of warpgroup 0][ring of warpgroup 1][A: D/64 x 8 KB][barriers]
+  unsigned char* base = smem_base();
+  unsigned char* As = base + 2 * stages * STAGE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(As + A_BM * D * 2);
+  const int m0 = blockIdx.x * A_BM;
+  const int nt0 = blockIdx.y * tiles;
+  const int n_tiles = min(tiles, Hd / A_BN - nt0);
+  const int KT = D / BK;
 
-  // LayerNorm with f32 statistics: warp w normalizes rows w*8 .. w*8+7
+  uint64_t* turn = bars + 4 * stages;          // turn[w]: warpgroup w's turn
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * stages; ++i) {
+      mbar_init(&bars[i], 1);                  // full: the producer's expect_tx
+      mbar_init(&bars[2 * stages + i], 4);     // empty: one arrival per warp
+    }
+    mbar_init(&turn[0], 4);
+    mbar_init(&turn[1], 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {              // the producer warp: lane w
+    const int w = threadIdx.x - CONSUMERS;     // fills warpgroup w's ring
+    if (w < 2) {
+      uint64_t* full = bars + w * stages;
+      uint64_t* empty = bars + (2 + w) * stages;
+      unsigned char* ring = base + w * stages * STAGE;
+      const int T = (n_tiles - w + 1) / 2 * KT;
+      for (int t = 0; t < T; ++t) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(&empty[s], (t / stages - 1) & 1);
+        const int n = (nt0 + w + 2 * (t / KT)) * A_BN, k = (t % KT) * BK;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load(ring + s * STAGE, &w1_map, &full[s], n, k);
+        tma_load(ring + s * STAGE + CHUNK, &w1_map, &full[s], n + 64, k);
+      }
+    }
+    return;
+  }
+
+  // LayerNorm with f32 statistics while the first W1 tiles arrive: warp w
+  // normalizes rows 8w..8w+7 from registers, written as bf16 into the
+  // 128-byte-swizzled K-major tile (64 rows x 64 columns per 8 KB block)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int C8 = D / 8;
   for (int r = warp * 8; r < warp * 8 + 8; ++r) {
     const int gr = m0 + r;
-    if (gr >= M) {
-      for (int c = lane; c < D; c += 32) Y[r * D + c] = __float2bfloat16(0.0f);
-      continue;
-    }
-    const bf16* xr = x + (size_t)gr * D;
+    uint4 v[LN_CHUNKS];
     float s = 0.0f;
-    for (int c = lane; c < D; c += 32) s += __bfloat162float(xr[c]);
+#pragma unroll
+    for (int i = 0; i < LN_CHUNKS; ++i) {
+      const int c8 = lane + 32 * i;
+      v[i] = make_uint4(0, 0, 0, 0);
+      if (c8 < C8 && gr < M)
+        v[i] = *reinterpret_cast<const uint4*>(x + (size_t)gr * D + c8 * 8);
+      float f[8];
+      unpack8(v[i], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += f[j];
+    }
     const float mean = warp_sum(s) / D;
     float q = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = __bfloat162float(xr[c]) - mean;
-      q += d * d;
+#pragma unroll
+    for (int i = 0; i < LN_CHUNKS; ++i) {
+      if (lane + 32 * i >= C8) continue;
+      float f[8];
+      unpack8(v[i], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) q += (f[j] - mean) * (f[j] - mean);
     }
-    const float inv = rsqrtf(warp_sum(q) / D + eps);
-    for (int c = lane; c < D; c += 32)
-      Y[r * D + c] = __float2bfloat16(
-          (__bfloat162float(xr[c]) - mean) * inv * gamma[c] + beta[c]);
+    const float rstd = rsqrtf(warp_sum(q) / D + eps);
+#pragma unroll
+    for (int i = 0; i < LN_CHUNKS; ++i) {
+      const int c8 = lane + 32 * i;
+      if (c8 >= C8) continue;
+      uint4 o = make_uint4(0, 0, 0, 0);
+      if (gr < M) {
+        float f[8];
+        unpack8(v[i], f);
+        const float4 g0 = *reinterpret_cast<const float4*>(gamma + c8 * 8);
+        const float4 g1 = *reinterpret_cast<const float4*>(gamma + c8 * 8 + 4);
+        const float4 e0 = *reinterpret_cast<const float4*>(beta + c8 * 8);
+        const float4 e1 = *reinterpret_cast<const float4*>(beta + c8 * 8 + 4);
+        const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const float bb[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+        uint32_t* w = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] = pack_bf16((f[2 * j] - mean) * rstd * gg[2 * j] + bb[2 * j],
+                           (f[2 * j + 1] - mean) * rstd * gg[2 * j + 1] +
+                               bb[2 * j + 1]);
+      }
+      *reinterpret_cast<uint4*>(As + (c8 / 8) * 8192 + r * 128 +
+                                (((c8 & 7) ^ (r & 7)) << 4)) = o;
+    }
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" :: "n"(LN_BARRIER), "n"(CONSUMERS)
+               : "memory");
 
-  FragC acc[4];
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int k0 = 0; k0 < D; k0 += TKC) {
-    __syncthreads();
-    load_b_chunk(Bs, w1, k0, n0, Hd);
-    __syncthreads();
-    mma_chunk(acc, Y + k0, D, Bs);
-  }
-  store_acc(C, acc);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < TM * TN; i += THREADS) {
-    const int r = i / TN, c = i % TN;
-    if (m0 + r >= M) continue;
-    const float v = C[i] + b1[n0 + c];
-    const float g = 0.5f * v * (1.0f + tanhf(0.7978845608028654f *
-                                            (v + 0.044715f * v * v * v)));
-    h[(size_t)(m0 + r) * Hd + n0 + c] = __float2bfloat16(g);
+  // warpgroup w computes the block's column tiles w, w + 2, ..., and the
+  // two take turns at the products (tile i of warpgroup 1 after tile i of
+  // warpgroup 0, tile i + 1 of warpgroup 0 after that): while one runs its
+  // GELU epilogue, the other's products keep the tensor cores busy
+  const int wg = threadIdx.x / 128;
+  const int wr = (threadIdx.x % 128) / 32, g = lane / 4, tq = lane % 4;
+  uint64_t* full = bars + wg * stages;
+  uint64_t* empty = bars + (2 + wg) * stages;
+  const uint32_t a_base = smem_u32(As);
+  const uint32_t ring_base = smem_u32(base + wg * stages * STAGE);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int tile = wg, t = 0, i = 0; tile < n_tiles; tile += 2, ++i) {
+    if (wg == 1)
+      mbar_wait(&turn[1], i & 1);
+    else if (i > 0)
+      mbar_wait(&turn[0], (i - 1) & 1);
+    for (int kt = 0; kt < KT; ++kt, ++t) {
+      const int s = t % stages;
+      mbar_wait(&full[s], (t / stages) & 1);
+      __syncwarp();
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const int k = kt * BK + kk * 16;
+        const uint64_t da =
+            desc_sw128(a_base + (k / 64) * 8192 + (k % 64) * 2, 16, 1024);
+        const uint64_t db =
+            desc_sw128(ring_base + s * STAGE + kk * 16 * 128, CHUNK, 1024);
+        wgmma<128>(acc, da, db, kt > 0 || kk > 0);
+      }
+      wg_commit();
+      wg_wait<1>();                        // step t-1's products retired:
+      if (t > 0 && lane == 0) mbar_arrive(&empty[(t - 1) % stages]);
+    }
+    if (lane == 0) mbar_arrive(&turn[1 - wg]);   // the other's turn
+    wg_wait<0>();                          // a column tile is complete
+    fence_acc(acc);
+    const int n = (nt0 + tile) * A_BN;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n + j * 8 + 2 * tq;
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + col);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + wr * 16 + g + 8 * hh;
+        if (row < M)
+          *reinterpret_cast<uint32_t*>(h + (size_t)row * Hd + col) =
+              pack_bf16(gelu_tanh(acc[4 * j + 2 * hh] + bb.x),
+                        gelu_tanh(acc[4 * j + 2 * hh + 1] + bb.y));
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-fc2_residual_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w2,
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+fc2_residual_kernel(const __grid_constant__ CUtensorMap h_map,
+                    const __grid_constant__ CUtensorMap w2_map,
                     const float* __restrict__ b2, const bf16* __restrict__ x,
                     bf16* __restrict__ out, int M, int D, int Hd) {
-  __shared__ __align__(128) bf16 As[TM * TKC];
-  __shared__ __align__(128) bf16 Bs[TKC * TN];
-  __shared__ __align__(128) float C[TM * TN];
-  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
+  constexpr int STAGE = B_ATILE + BN / 64 * B_CHUNK;
+  unsigned char* ring = smem_base();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * B_BM;
+  const int T = Hd / B_BK;
 
-  FragC acc[4];
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int k0 = 0; k0 < Hd; k0 += TKC) {
-    __syncthreads();
-    {  // As <- h[m0:m0+TM, k0:k0+TKC], zero past M
-      const int r = threadIdx.x / (TKC / 8), c = (threadIdx.x % (TKC / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const uint4*>(h + (size_t)(m0 + r) * Hd + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * TKC + c) = v;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);                  // the producer's expect_tx
+      mbar_init(&empty[s], CONSUMERS / 32);    // one arrival per consumer warp
     }
-    load_b_chunk(Bs, w2, k0, n0, D);
-    __syncthreads();
-    mma_chunk(acc, As, TKC, Bs);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_acc(C, acc);
   __syncthreads();
-
-  for (int i = threadIdx.x; i < TM * TN; i += THREADS) {
-    const int r = i / TN, c = i % TN;
-    if (m0 + r >= M) continue;
-    const size_t o = (size_t)(m0 + r) * D + n0 + c;
-    out[o] = __float2bfloat16(C[i] + b2[n0 + c] + __bfloat162float(x[o]));
+  if (threadIdx.x >= CONSUMERS) {              // the producer warp
+    if (threadIdx.x == CONSUMERS)
+      for (int t = 0; t < T; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        unsigned char* st = ring + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load(st, &h_map, &full[s], t * B_BK, m0);
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load(st + B_ATILE + c * B_CHUNK, &w2_map, &full[s],
+                   n0 + c * 64, t * B_BK);
+      }
+    return;
   }
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int wr = (threadIdx.x % 128) / 32, g = lane / 4, tq = lane % 4;
+  const uint32_t ring_base = smem_u32(ring);
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    __syncwarp();
+    wg_fence();
+    const uint32_t st = ring_base + s * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < B_BK / 16; ++kk)
+      wgmma<BN>(acc, desc_sw128(st + wg * 64 * 128 + kk * 32, 16, 1024),
+                desc_sw128(st + B_ATILE + kk * 16 * 128, B_CHUNK, 1024),
+                t > 0 || kk > 0);
+    wg_commit();
+    wg_wait<1>();                          // step t-1's products retired:
+    if (t > 0 && lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * tq;
+    const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + wg * 64 + wr * 16 + g + 8 * hh;
+      if (row >= M) continue;
+      const size_t o = (size_t)row * D + col;
+      const float2 xr = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(x + o));
+      *reinterpret_cast<uint32_t*>(out + o) =
+          pack_bf16(acc[4 * j + 2 * hh] + bb.x + xr.x,
+                    acc[4 * j + 2 * hh + 1] + bb.y + xr.y);
+    }
+  }
+}
+
+// --- host side ---------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's tensor-map encoder, looked up once at run time (no link-time
+// dependency on libcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map encodes the data pointer, so one is made per (pointer,
+// shape, box). The maps are cached: on the click path the weights and, from
+// PyTorch's caching allocator, h come back at the same addresses, and the
+// encoder then runs once per distinct tensor instead of twice per call. A
+// cached map stays valid for any tensor later placed at the same address
+// with the same shape.
+struct MapKey {
+  const void* ptr;
+  uint64_t rows, cols;
+  uint32_t box_cols, box_rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && rows == o.rows && cols == o.cols &&
+           box_cols == o.box_cols && box_rows == o.box_rows;
+  }
+};
+constexpr int MAP_CACHE = 64;
+struct MapCache {
+  std::mutex mu;
+  MapKey key[MAP_CACHE];
+  CUtensorMap map[MAP_CACHE];
+  int size = 0, next = 0;
+};
+
+// row-major (rows, cols) bf16 matrix read in (box_rows, box_cols) boxes
+// (box_cols * 2 = 128 bytes, the swizzle span); rows past the end read zeros
+bool bf16_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
+              uint32_t box_cols, uint32_t box_rows) {
+  static MapCache cache;
+  const MapKey k{ptr, rows, cols, box_cols, box_rows};
+  std::lock_guard<std::mutex> lock(cache.mu);
+  for (int i = 0; i < cache.size; ++i)
+    if (cache.key[i] == k) {
+      *out = cache.map[i];
+      return true;
+    }
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  if (enc(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  const int slot = cache.next;
+  cache.key[slot] = k;
+  cache.map[slot] = *out;
+  cache.next = (slot + 1) % MAP_CACHE;
+  if (cache.size < MAP_CACHE) ++cache.size;
+  return true;
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SMEM_MAX);
+}
+
+template <int BN>
+int launch_fc2(const CUtensorMap& hm, const CUtensorMap& wm, const float* b2,
+               const bf16* x, bf16* out, int M, int D, int Hd,
+               cudaStream_t stream) {
+  static const cudaError_t attr = allow_smem(fc2_residual_kernel<BN>);  // once
+  if (attr != cudaSuccess) return (int)attr;
+  const int smem = STAGES * (B_ATILE + BN / 64 * B_CHUNK) + SMEM_EXTRA;
+  const dim3 grid(D / BN, (M + B_BM - 1) / B_BM);
+  fc2_residual_kernel<BN><<<grid, THREADS, smem, stream>>>(hm, wm, b2, x, out,
+                                                           M, D, Hd);
+  return (int)cudaGetLastError();
+}
+
+template <int BK>
+int launch_fc1(const void* x, const void* gamma, const void* beta,
+               const void* w1, const void* b1, void* h, int M, int D, int Hd,
+               float eps, cudaStream_t stream) {
+  static const cudaError_t attr = allow_smem(ln_fc1_gelu_kernel<BK>);  // once
+  if (attr != cudaSuccess) return (int)attr;
+  const int a_bytes = A_BM * D * 2, stage = 2 * BK * 128;
+  const int stages =
+      min(4, (SMEM_MAX - SMEM_EXTRA - a_bytes) / (2 * stage));
+  if (stages < 3) return (int)cudaErrorInvalidValue;
+  CUtensorMap w1m;
+  if (!bf16_map(&w1m, w1, D, Hd, 64, BK)) return (int)cudaErrorNotSupported;
+  // column tiles per block: the fewest column groups (a divisor of the tile
+  // count) that still give two waves of blocks (one block per SM fits), so
+  // one LayerNorm serves as many columns as the card's SMs allow
+  const int row_tiles = (M + A_BM - 1) / A_BM, n_tiles = Hd / A_BN;
+  int groups = n_tiles;
+  for (int k = 1; k <= n_tiles; ++k)
+    if (n_tiles % k == 0 && row_tiles * k >= 2 * sm_count()) {
+      groups = k;
+      break;
+    }
+  const int smem = 2 * stages * stage + a_bytes + SMEM_EXTRA;
+  ln_fc1_gelu_kernel<BK><<<dim3(row_tiles, groups), THREADS, smem, stream>>>(
+      w1m, (const bf16*)x, (const float*)gamma, (const float*)beta,
+      (const float*)b1, (bf16*)h, M, D, Hd, n_tiles / groups, stages, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, h, out, w1, w2: contiguous bf16; gamma, beta, b1, b2: contiguous f32.
-// Shapes (checked by the Python wrapper): D % 128 == 0, Hd % 128 == 0,
-// 2 * TM * D + 40960 bytes of shared memory within the H100's 227 KB.
+// x, h, out, w1, w2: contiguous bf16, 16-byte aligned; gamma, beta, b1, b2:
+// contiguous f32. D % 128 == 0, D <= 1280, Hd % 128 == 0, M >= 1 (checked by
+// the Python wrapper). Returns a cudaError_t; cudaErrorNotSupported when the
+// tensor-map encoder of libcuda is missing or refuses the tensor.
 extern "C" int pvpu_ln_fc1_gelu(const void* x, const void* gamma,
                                 const void* beta, const void* w1,
                                 const void* b1, void* h, int M, int D, int Hd,
                                 float eps, void* stream) {
-  const size_t smem = sizeof(bf16) * (TM * D + TKC * TN) + sizeof(float) * TM * TN;
-  cudaFuncSetAttribute(ln_fc1_gelu_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((M + TM - 1) / TM, Hd / TN);
-  ln_fc1_gelu_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)gamma, (const float*)beta,
-      (const bf16*)w1, (const float*)b1, (bf16*)h, M, D, Hd, eps);
-  return (int)cudaGetLastError();
+  if (D % 128 || Hd % 128 || M < 1 || D > 1280)
+    return (int)cudaErrorInvalidValue;
+  // 64-row W1 tiles while three stages of both rings fit beside the
+  // resident A (D <= 1024), 32-row tiles above
+  const cudaStream_t s = (cudaStream_t)stream;
+  return D <= 1024
+             ? launch_fc1<64>(x, gamma, beta, w1, b1, h, M, D, Hd, eps, s)
+             : launch_fc1<32>(x, gamma, beta, w1, b1, h, M, D, Hd, eps, s);
 }
 
 extern "C" int pvpu_fc2_residual(const void* h, const void* w2, const void* b2,
                                  const void* x, void* out, int M, int D, int Hd,
                                  void* stream) {
-  dim3 grid((M + TM - 1) / TM, D / TN);
-  fc2_residual_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, (const bf16*)w2, (const float*)b2, (const bf16*)x,
-      (bf16*)out, M, D, Hd);
-  return (int)cudaGetLastError();
+  if (D % 128 || Hd % 128 || M < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap hm, wm;
+  if (!bf16_map(&hm, h, M, Hd, 64, B_BM) || !bf16_map(&wm, w2, Hd, D, 64, B_BK))
+    return (int)cudaErrorNotSupported;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int tiles128 = ((M + B_BM - 1) / B_BM) * (D / 128);
+  return tiles128 >= sm_count()
+             ? launch_fc2<128>(hm, wm, (const float*)b2, (const bf16*)x,
+                               (bf16*)out, M, D, Hd, s)
+             : launch_fc2<64>(hm, wm, (const float*)b2, (const bf16*)x,
+                              (bf16*)out, M, D, Hd, s);
 }

@@ -11,8 +11,10 @@ attention atol 5e-3 for the fused entry and 1.5e-2 for the flash entry,
 about 2-3x the error measured on an H100 (the fused entry shares its plain
 version's rounding points; the flash entry rounds P before normalizing, its
 plain version after); min-plus bit-exact; LN+MLP bf16 atol 0.06 / rtol 0.05
-as the JAX kernel's own test, at its operand scale (weights N(0, 0.05));
-the two CC kernels bit-exact (integer max); tiny f32 prompt sessions on the
+as the JAX kernel's own test, at its operand scale (weights N(0, 0.05)), at
+the ViT-B/L/H widths and 1 to 25088 rows, and bit-identical on repeat; its
+bf16 backward within one bf16 ulp of each gradient's largest entry of
+autograd through the plain version (as the CPU test); the two CC kernels bit-exact (integer max); tiny f32 prompt sessions on the
 card vs the same sessions on the CPU: identical clicks, IoU within 1e-5.
 The attention backward: f32 1e-4, bf16 atol 1e-2 (~2.5x the error measured
 on an H100 at the training shapes, 3.9e-3), and bit-identical on repeat (no
@@ -149,28 +151,83 @@ def test_minplus_kernel_raises_above_its_tile(cuda):
         edt_minplus.minplus_rows(torch.zeros(2, 8193, device=cuda))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [1568, 100])
-def test_fused_ln_mlp_kernel_matches_plain(cuda, m):
-    r = np.random.default_rng(0)
-    d, hidden = 768, 3072
-    bf = torch.bfloat16
-    x = _t(r.normal(size=(m, d)), bf, cuda)
-    ln = types.SimpleNamespace(scale=_t(r.normal(1, 0.1, d), dev=cuda),
-                               bias=_t(r.normal(0, 0.1, d), dev=cuda))
+def _ln_mlp(r, d, hidden, dev, dt=torch.bfloat16):
+    """LN and MLP parameters at the JAX kernel test's scale: LN scale / bias
+    f32, weights and biases N(0, 0.05) in `dt`."""
+    ln = types.SimpleNamespace(scale=_t(r.normal(1, 0.1, d), dev=dev),
+                               bias=_t(r.normal(0, 0.1, d), dev=dev))
     lin = lambda i, o: types.SimpleNamespace(           # noqa: E731
-        w=_t(r.normal(0, 0.05, (i, o)), bf, cuda),
-        b=_t(r.normal(0, 0.05, o), bf, cuda))
-    mlp = types.SimpleNamespace(fc1=lin(d, hidden), fc2=lin(hidden, d))
+        w=_t(r.normal(0, 0.05, (i, o)), dt, dev),
+        b=_t(r.normal(0, 0.05, o), dt, dev))
+    return ln, types.SimpleNamespace(fc1=lin(d, hidden), fc2=lin(hidden, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hidden", [(768, 3072), (1024, 4096), (1280, 5120)],
+                         ids=["vit_b", "vit_l", "vit_h"])
+@pytest.mark.parametrize("m", [1, 100, 1568, 25088])
+def test_fused_ln_mlp_kernel_matches_plain(cuda, m, d, hidden):
+    r = np.random.default_rng(0)
+    x = _t(r.normal(size=(m, d)), torch.bfloat16, cuda)
+    ln, mlp = _ln_mlp(r, d, hidden, cuda)
     n0 = fused_mlp.fused_ln_mlp.launches
     got = fused_mlp.fused_ln_mlp(x, ln, mlp)
     assert fused_mlp.fused_ln_mlp.launches == n0 + 1
     want = fused_mlp.fused_ln_mlp_plain(x, ln.scale, ln.bias, mlp.fc1.w,
                                         mlp.fc1.b, mlp.fc2.w, mlp.fc2.b, 1e-6)
     _cmp(got, want, 0.06, 0.05)
+    # no atomics, no split-K: the same bits on every call
+    assert torch.equal(got, fused_mlp.fused_ln_mlp(x, ln, mlp))
     # f32 is a semantic route to the plain ops: no launch
     fused_mlp.fused_ln_mlp(x.float(), ln, mlp)
-    assert fused_mlp.fused_ln_mlp.launches == n0 + 1
+    assert fused_mlp.fused_ln_mlp.launches == n0 + 2
+
+
+@pytest.mark.cuda
+def test_fused_ln_mlp_kernel_raises_outside_its_envelope(cuda):
+    r = np.random.default_rng(0)
+    ln, mlp = _ln_mlp(r, 1344, 5376, cuda)
+    x = torch.zeros(8, 1344, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="D=1344"):
+        fused_mlp.fused_ln_mlp(x, ln, mlp)
+    ln, mlp = _ln_mlp(r, 768, 3072, cuda)
+    mlp.fc1.b = mlp.fc1.b[:-128]             # the kernel would read past it
+    with pytest.raises(ValueError, match="vectors"):
+        fused_mlp.fused_ln_mlp(x[:, :768].contiguous(), ln, mlp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1568, 25088])
+def test_fused_ln_mlp_bf16_backward_matches_plain(cuda, m):
+    """The bf16 backward on the card (cuBLAS bf16 products with f32 results)
+    against autograd through the plain version (f32 products), both from
+    bf16 x and f32 parameters, as the training path has them: each gradient
+    within one bf16 ulp of its largest entry, as tests/test_torch_mlp_bwd.py
+    holds it on the CPU; one backward counted."""
+    r = np.random.default_rng(1)
+    d, hidden = 768, 3072
+    ln, mlp = _ln_mlp(r, d, hidden, cuda, torch.float32)
+    params = [ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w, mlp.fc2.b]
+    x = _t(r.normal(size=(m, d)), torch.bfloat16, cuda)
+    g = _t(r.normal(size=(m, d)), torch.bfloat16, cuda)
+    got_leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    lns = types.SimpleNamespace(scale=got_leaves[1], bias=got_leaves[2])
+    lin = lambda w, b: types.SimpleNamespace(w=w, b=b)  # noqa: E731
+    mlps = types.SimpleNamespace(fc1=lin(*got_leaves[3:5]),
+                                 fc2=lin(*got_leaves[5:7]))
+    out = fused_mlp.fused_ln_mlp(got_leaves[0], lns, mlps)
+    n0 = fused_mlp.fused_ln_mlp.bwd_launches
+    got = torch.autograd.grad(out, got_leaves, g)
+    assert fused_mlp.fused_ln_mlp.bwd_launches == n0 + 1
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    want = torch.autograd.grad(fused_mlp.fused_ln_mlp_plain(*leaves, 1e-6),
+                               leaves, g)
+    torch.cuda.synchronize()
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == w.dtype
+        mx = float(w.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(mx)) - 7)
+        assert float((a.float() - w.float()).abs().max()) <= ulp, i
 
 
 def _blobs(seed, b, h, w, n=8):
