@@ -4,12 +4,18 @@
 
 Phases (each prints one line; any failure raises and the exit code is not 0):
   1. environment: a CUDA device is required (no CPU path); the card's name
-     and power limit from nvidia-smi; TF32 off for the f32 phases;
+     and power limit from nvidia-smi; torch's precision flags are left as
+     they come (the package pins its own precision);
   2. build: nvcc compiles pvpuformer_tpu_torch/csrc/*.cu into build/kernels/;
   3. kernels vs their plain PyTorch versions on the card, at the ViT-B@448
      click-, prompt- and training-path (batch 32) shapes (and the CC
-     kernels at a snake that needs more than 8 rounds, > 256 components, a
-     ragged shape and an empty mask), with the
+     kernels, bit-exact and bit-identical on repeat at iters 1, 2, 8 and 16,
+     at every mask of CC_MASKS: a snake and a spiral that need more than 8
+     rounds, 50176 components, ragged, empty, full, 1 x W and H x 1 masks,
+     a 4096 x 4096 image; one CUDA kernel per call, counted with
+     torch.profiler; and whether torch's
+     allow_bf16_reduced_precision_reduction changes a bf16 linear at the
+     model's shapes), with the
      error beside its tolerance, the kernel time beside the plain time, the
      bound and, for attention, the time of torch's
      scaled_dot_product_attention, forward or backward (timed only, never
@@ -38,7 +44,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
   7. the prompt path: ViT-B@448 bf16 box / scribble sessions through
      `Predictor`, 5 clicks for each of the four variants (random prompts):
      IoUs finite in [0, 1] and every kernel's launch count equal to the
-     wrapper calls the path makes, counted per variant;
+     wrapper calls the path makes, counted per variant; one more click of
+     each variant and of the click path under torch's sync debug mode, and
+     one more captured into a CUDA graph (a capture fails on any host
+     sync);
   8. training parity: two f32 `train_step`s of the tiny config (batch 2,
      one step with a box round) on CUDA vs on the CPU, the same draws:
      loss, every gradient and the updated parameters within tolerance;
@@ -83,11 +92,22 @@ PROMPT_VARIANTS = {(1, True): (1, 1, 2), (2, True): (2, 2, 2),
                    (1, False): (0, 0, 1), (2, False): (1, 1, 1)}
 
 # NVIDIA H100 SXM datasheet peaks: dense bf16 tensor
-# cores, f32 on the CUDA cores (the int32 max / select work of the CC
-# kernels and the min-plus adds are counted at this rate), HBM3 bytes/s
+# cores, f32 on the CUDA cores (the min-plus adds are counted at this rate),
+# HBM3 bytes/s
 PEAK_BF16 = 989e12
 PEAK_CUDA_CORE = 67e12
 PEAK_BYTES = 3.35e12
+# int32 min / max on the CUDA cores: 64 results per clock per SM on compute
+# capability 9.0 (the CUDA C++ Programming Guide's throughput table, against
+# 128 f32 FMAs), 132 SMs at the 1.98 GHz boost clock; the CC kernels' work
+# is counted at this rate (PEAK_CUDA_CORE / 4)
+PEAK_INT32 = 132 * 64 * 1.98e9
+# int32 operations per pixel per flood round for a linear scan: the
+# separable 3x3 max-pool 4, the mask select 1, on each axis a forward and a
+# backward segmented max (max and select each) and their combine 5, the
+# final mask 1. The Pallas CostEstimate's 60 is the TPU's log-step doubling.
+CC_OPS = 16
+CC_ITERS = (1, 2, 8, 16)
 
 
 def _log(msg: str) -> None:
@@ -193,7 +213,9 @@ def phase_kernels(dev):
                 f"  library (SDPA) {library_ms:.4f} ms, kernel / SDPA "
                 f"{r[1] / library_ms:.2f}x"))
         kern_dev, lib_dev = device or (None, None)
-        if kern_dev is not None:
+        if kern_dev is not None and lib_dev is None:
+            _log(f"    device time (CUDA graph): kernel {kern_dev:.4f} ms")
+        elif kern_dev is not None:
             _log(f"    device time (CUDA graph): kernel {kern_dev:.4f} ms, "
                  f"{yardstick} {lib_dev:.4f} ms, kernel / {yardstick} "
                  f"{kern_dev / lib_dev:.2f}x")
@@ -335,29 +357,120 @@ def phase_kernels(dev):
         device_ms_train=mlp_extra[m][0], chain_device_ms_train=mlp_extra[m][1],
         bwd_ms_train=bwd_ms, recompute_bwd_ms_train=recompute_ms)
     del x, gy
-    # the CC kernels: bit-exact at the prompt path's (2, 448, 448) masks
-    # (the error / gt masks of the flip batch), the training path's
-    # (32, 448, 448) and at the edge cases
-    iters = 8
+    phase_bf16_reduction(dev, g)
+    phase_cc(dev, g, record, times)
+    return {name: dict(times[name], max_abs_err=err[name]) for name in err}
+
+
+def phase_bf16_reduction(dev, g):
+    """torch's allow_bf16_reduced_precision_reduction (True by default)
+    must not change a bf16 `nn.linear` at the model's shapes, since the
+    package does not pin it: its forward and its autograd backward (dx and
+    dW, whose reduction runs over the tokens) at the click path's 1568 and
+    the training path's 25088 tokens, the ViT-B qkv / proj widths and the
+    24 prompt tokens of the neck, each way, bit-identical."""
+    import types
+    import torch
+    from pvpuformer_tpu_torch import nn
+    mm = torch.backends.cuda.matmul
+    default = mm.allow_bf16_reduced_precision_reduction
+    report = {}
+    for m, k, n in ((1568, 768, 2304), (1568, 768, 768), (25088, 768, 2304),
+                    (25088, 768, 768), (24, 768, 768)):
+        x = torch.randn((m, k), generator=g).to(dev, torch.bfloat16)
+        lin = nn.Linear(k, n, g=g).to(dev)      # f32 weights, bf16 compute
+        dy = torch.randn((m, n), generator=g).to(dev, torch.bfloat16)
+        outs = []
+        for allow in (default, not default):
+            mm.allow_bf16_reduced_precision_reduction = allow
+            xx = x.clone().requires_grad_()
+            w = lin.w.detach().clone().requires_grad_()
+            y = nn.linear(types.SimpleNamespace(w=w, b=lin.b), xx)
+            outs.append((y, *torch.autograd.grad(y, (xx, w), dy)))
+        mm.allow_bf16_reduced_precision_reduction = default
+        report[f"({m},{k})x({k},{n})"] = [
+            "same" if torch.equal(a, b) else
+            f"{(a.float() - b.float()).abs().max().item():.2e}"
+            for a, b in zip(*outs)]
+    _log(f"  allow_bf16_reduced_precision_reduction {default} vs "
+         f"{not default}, bf16 linear [y, dx, dW]: {json.dumps(report)}")
+    if any(v != "same" for row in report.values() for v in row):
+        raise AssertionError("allow_bf16_reduced_precision_reduction changes "
+                             "a bf16 linear: pin it in nn.linear")
+
+
+def phase_cc(dev, g, record, times):
+    """The CC kernels: bit-exact against their plain versions and
+    bit-identical on repeat for every mask of cc_masks() at every iters of
+    CC_ITERS; one CUDA kernel per call (torch.profiler); timed at 8 rounds
+    at the prompt path's (2, 448, 448) masks (the error / gt masks of the
+    flip batch) and the training path's (32, 448, 448), eagerly and as
+    device time (20 calls replayed from a CUDA graph), beside the plain
+    version and the bound."""
+    import torch
+    from pvpuformer_tpu_torch.ops import cc
     for label, masks in cc_masks().items():
         mt = torch.from_numpy(masks).to(dev)
         vals = torch.randint(0, 2 ** 20, masks.shape, dtype=torch.int32,
                              generator=g).to(dev)
-        px = float(mt.numel())
-        main = label == "path"
-        record("cc_labels", _compare(
-            f"cc_labels {label} {tuple(masks.shape)}",
-            lambda: cc.cc_labels(mt, iters),
-            lambda: cc.cc_labels_plain(mt, iters), 0, 0, exact=True), main,
-            # the Pallas CostEstimate's 60 ops per pixel per round, unpadded
-            _bound(iters * 60 * px, PEAK_CUDA_CORE, px * (1 + 4)))
-        record("component_max", _compare(
-            f"component_max {label} {tuple(masks.shape)}",
-            lambda: cc.component_max(mt, vals, iters),
-            lambda: cc.component_max_plain(mt, vals, iters), 0, 0,
-            exact=True), main,
-            _bound(iters * 60 * px, PEAK_CUDA_CORE, px * (1 + 4 + 4)))
-    return {name: dict(times[name], max_abs_err=err[name]) for name in err}
+        for iters in CC_ITERS:
+            for fn, plain, args in (
+                    (cc.cc_labels, cc.cc_labels_plain, (mt,)),
+                    (cc.component_max, cc.component_max_plain, (mt, vals))):
+                got = fn(*args, iters)
+                again = fn(*args, iters)
+                want = plain(*args, iters)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(got, again)):
+                    raise AssertionError(
+                        f"{fn.__name__} {label} {tuple(masks.shape)} iters "
+                        f"{iters}: not bit-exact against the plain version "
+                        f"or not bit-identical on repeat")
+                del got, again, want
+        _log(f"  cc_labels, component_max {label} {tuple(masks.shape)}: "
+             f"bit-exact and bit-identical on repeat at iters {CC_ITERS}")
+        if label not in ("path", "train"):
+            continue
+        px, iters = float(mt.numel()), 8
+        for fn, plain, args, nbytes in (
+                (cc.cc_labels, cc.cc_labels_plain, (mt,), px * (1 + 4)),
+                (cc.component_max, cc.component_max_plain, (mt, vals),
+                 px * (1 + 4 + 4))):
+            call = lambda: fn(*args, iters)  # noqa: E731
+            kernels = _cuda_kernels(call)
+            _log(f"  {fn.__name__} {tuple(masks.shape)}: CUDA kernels per "
+                 f"call (torch.profiler) {kernels}")
+            if len(kernels) != 1:
+                raise AssertionError(f"{fn.__name__}: {len(kernels)} CUDA "
+                                     f"kernels per call, not one")
+            r = _compare(f"{fn.__name__} {label} {tuple(masks.shape)}", call,
+                         lambda: plain(*args, iters), 0, 0, exact=True)
+            # CC_OPS per pixel per round at the int32 rate; beside it the
+            # earlier figure (60 ops at the f32 rate), in the log only
+            old = _bound(iters * 60 * px, PEAK_CUDA_CORE, nbytes)
+            _log(f"    old bound (60 ops per pixel per round at the f32 "
+                 f"rate) {old[0] * 1e3:.2f} us ({old[1]})")
+            dev_ms = _device_ms(call)
+            bound = _bound(iters * CC_OPS * px, PEAK_INT32, nbytes)
+            record(fn.__name__, r, label == "path", bound,
+                   device=(dev_ms, None))
+            if label == "train":
+                times[fn.__name__].update(ms_train=r[1], plain_ms_train=r[2],
+                                          device_ms_train=dev_ms,
+                                          bound_ms_train=bound[0])
+
+
+def _cuda_kernels(fn):
+    """The names of the CUDA kernels one call of `fn` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def ln_mlp_chain(x, ln, mlp):
@@ -407,32 +520,112 @@ def phase_mlp_bwd(x, params, gy):
 
 
 def cc_masks():
-    """The CC kernels' test masks: random blobs at the prompt path's flip
-    batch (2, 448, 448) (like tests/test_engine.py:blobby_mask) and at the
-    training path's batch (32, 448, 448); a snake
-    with 10 direction reversals (> 8 flood rounds, so labels stay partial);
-    1345 components; a ragged (3, 74, 53); an empty mask."""
-    def blobs(seed, b, h, w, n):
-        r = np.random.default_rng(seed)
-        yy, xx = np.mgrid[0:h, 0:w]
-        m = np.zeros((b, h, w), bool)
-        for i in range(b):
-            for _ in range(n):
-                cy, cx = r.integers(0, h), r.integers(0, w)
-                rad = r.integers(2, max(3, h // 8))
-                m[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rad ** 2
-        return m
-    snake = np.zeros((1, 40, 40), bool)
+    """The CC kernels' test masks, by name (CC_MASKS)."""
+    return {name: make() for name, make in CC_MASKS.items()}
+
+
+def _blobs(seed, b, h, w, n, rad=None):
+    """Random discs (like tests/test_engine.py:blobby_mask), radius 2 to
+    `rad` (h // 8 by default), each drawn in its bounding box."""
+    r = np.random.default_rng(seed)
+    m = np.zeros((b, h, w), bool)
+    for i in range(b):
+        for _ in range(n):
+            cy, cx = r.integers(0, h), r.integers(0, w)
+            rr = int(r.integers(2, max(3, rad or h // 8)))
+            y0, y1 = max(cy - rr, 0), min(cy + rr + 1, h)
+            x0, x1 = max(cx - rr, 0), min(cx + rr + 1, w)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            m[i, y0:y1, x0:x1] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rr ** 2
+    return m
+
+
+def _snake():
+    """One component with 10 direction reversals (> 8 flood rounds)."""
+    m = np.zeros((1, 40, 40), bool)
     for i in range(0, 40, 4):
-        snake[0, i, 1:39] = True
-        snake[0, i:i + 4, 38 if (i // 4) % 2 == 0 else 1] = True
-    speckles = np.zeros((1, 64, 96), bool)
-    speckles[0, 1:5, 1:5] = True
-    speckles[0, 8::2, 1::2] = True
-    return {"path": blobs(0, 2, 448, 448, 12),
-            "train": blobs(2, 32, 448, 448, 12), "snake": snake,
-            "speckles": speckles, "ragged": blobs(1, 3, 74, 53, 6),
-            "empty": np.zeros((2, 448, 448), bool)}
+        m[0, i, 1:39] = True
+        m[0, i:i + 4, 38 if (i // 4) % 2 == 0 else 1] = True
+    return m
+
+
+def _spiral(n):
+    """A square spiral one pixel wide with one-pixel gaps, walked inwards
+    from the corner: one 8-connected component whose ~n/2 arms cross every
+    row and column segment and pass boundary of the kernels' tiling and
+    need far more than 16 flood rounds (labels stay partial)."""
+    m = np.zeros((1, n, n), bool)
+    r = c = d = 0
+    steps = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    m[0, 0, 0] = True
+    while True:
+        for _ in range(2):                 # straight on, else turn right
+            dr, dc = steps[d]
+            r1, c1, r2, c2 = r + dr, c + dc, r + 2 * dr, c + 2 * dc
+            if (0 <= r1 < n and 0 <= c1 < n and not m[0, r1, c1]
+                    and not (0 <= r2 < n and 0 <= c2 < n and m[0, r2, c2])):
+                r, c = r1, c1
+                m[0, r, c] = True
+                break
+            d = (d + 1) % 4
+        else:
+            return m
+
+
+def _lines(seed, b, h, w):
+    """(b, h, w) masks of one row or one column: runs of random length."""
+    r = np.random.default_rng(seed)
+    return r.uniform(size=(b, h, w)) < 0.97
+
+
+def _large():
+    """(1, 4096, 4096), above L2 twice over: large discs joined by full
+    rows and columns with a few gaps, so runs cross every pass of both
+    phases."""
+    m = _blobs(5, 1, 4096, 4096, 40, rad=600)
+    for a in (7, 1000, 2047, 4095):
+        m[0, a, :] = True
+        m[0, :, a] = True
+    m[0, 1000, 3000:3003] = False
+    m[0, 2500:2502, 2047] = False
+    return m
+
+
+# name -> (B, H, W) bool masks: random discs at the prompt path's flip batch
+# (2, 448, 448) and the training batch (32, 448, 448); a snake with 10
+# reversals; 1345 components; 50176 one-pixel components; a ragged
+# (3, 74, 53); an empty mask; a full mask (one run spans each line); a
+# 448 x 448 spiral; 1 x W and H x 1 masks (one pass, and many passes at
+# 8192); a 4096 x 4096 image
+CC_MASKS = {
+    "path": lambda: _blobs(0, 2, 448, 448, 12),
+    "train": lambda: _blobs(2, 32, 448, 448, 12),
+    "snake": _snake,
+    "speckles": lambda: _speckles(),
+    "dots": lambda: _dots(448),
+    "ragged": lambda: _blobs(1, 3, 74, 53, 6),
+    "empty": lambda: np.zeros((2, 448, 448), bool),
+    "full": lambda: np.ones((2, 448, 448), bool),
+    "spiral": lambda: _spiral(448),
+    "row": lambda: _lines(3, 3, 1, 448),
+    "column": lambda: _lines(4, 3, 448, 1),
+    "long row": lambda: _lines(6, 2, 1, 8192),
+    "long column": lambda: _lines(7, 2, 8192, 1),
+    "large": _large,
+}
+
+
+def _dots(n):
+    m = np.zeros((1, n, n), bool)
+    m[0, ::2, ::2] = True
+    return m
+
+
+def _speckles():
+    m = np.zeros((1, 64, 96), bool)
+    m[0, 1:5, 1:5] = True
+    m[0, 8::2, 1::2] = True
+    return m
 
 
 def tiny_config():
@@ -608,7 +801,7 @@ def phase_prompts(dev, card: str, model):
     depth = mcfg.backbone.depth
     wrappers = _wrappers()
     total = {w.__name__: 0 for w in wrappers}
-    medians = {}
+    medians, preds = {}, []
     for (mode, multi), (n_cc, n_cm, n_mp) in PROMPT_VARIANTS.items():
         pred = Predictor(model, PredictorConfig(
             model=mcfg, target_size=(448, 448), with_flip=True,
@@ -648,6 +841,7 @@ def phase_prompts(dev, card: str, model):
         for k, v in counts.items():
             total[k] += v
         _no_host_sync(pred)
+        preds.append(pred)
     # the click path (prompt_mode 0) too
     pred = Predictor(model, PredictorConfig(model=mcfg, target_size=(448, 448),
                                             with_flip=True), device=dev)
@@ -656,7 +850,36 @@ def phase_prompts(dev, card: str, model):
     _no_host_sync(pred)
     _log("  one more click of each variant and of the click path ran with no "
          "host sync (torch.cuda.set_sync_debug_mode('error'))")
+    preds.append(pred)
+    side = torch.cuda.Stream()
+    for p in preds:
+        _capture_click(p, side)
+    _log("  one more click_step of the click path and of each variant was "
+         "captured into a CUDA graph (not replayed): no synchronizing call")
     return total, medians
+
+
+def _capture_click(pred, side):
+    """One more click_step captured into a torch.cuda.CUDAGraph (not
+    replayed), after a warm-up click, both on the stream `side`. A capture
+    fails on any call that synchronizes with the host, so a clean one
+    proves the click has none (the sync debug mode above only bounds them).
+    The prompt draws' pinned host copy (`_prompt_noise`) is accepted under
+    capture as it is. One stream for every capture: torch keeps a cuBLAS
+    workspace per stream (32 MiB each), which would otherwise stay
+    allocated into phase 9's peak memory."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import click_step
+    args = (pred.model, pred.cfg, pred.state, pred.gen)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        click_step(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        click_step(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    del graph
+    torch.cuda.synchronize()
 
 
 def _no_host_sync(pred):
@@ -960,7 +1183,7 @@ def _train_run(dev, card, cfg, seed, plan, b):
 
 
 # kernel-name substrings -> group, first match wins (profile_paths)
-KERNEL_GROUPS = (("cc (run_max_pass)", "run_max_pass"),
+KERNEL_GROUPS = (("CC kernel", "flood_kernel"),
                  ("attention backward kernel", "attention_bwd"),
                  ("attention kernel", "attention"),
                  ("LN+MLP kernel", "fc1_gelu"), ("LN+MLP kernel", "fc2_resid"),
@@ -1041,10 +1264,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    mm = torch.backends.cuda.matmul
     _log(f"[1/9] environment: {smi} | torch {torch.__version__} "
-         f"cuda {torch.version.cuda}")
+         f"cuda {torch.version.cuda} | torch's precision flags as they come "
+         f"(the package pins its own): cudnn.allow_tf32 "
+         f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
+         f"{mm.allow_tf32}, allow_bf16_reduced_precision_reduction "
+         f"{mm.allow_bf16_reduced_precision_reduction}")
 
     from pvpuformer_tpu_torch.ops import _build
     t0 = time.perf_counter()

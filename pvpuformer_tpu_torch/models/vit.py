@@ -29,10 +29,17 @@ class ViTConfig:
     The port reads `attn_impl`, `ln_f32` and `mlp_impl` but honours only:
       * attn_impl == "flash" selects the flash attention entry point; every
         other value ("auto", "xla", "fused") selects the fused entry point;
-      * ln_f32 keeps its numeric meaning for the pre-attention LayerNorm.
-    The TPU crossovers behind "auto" (dense below MIN_SCORE_WORK) and the
-    opt-in `mlp_impl="fused"` are not carried over: the MLP half always goes
-    through `fused_ln_mlp`, whose LayerNorm keeps f32 statistics."""
+      * ln_f32 keeps its numeric meaning for the pre-attention LayerNorm
+        (False: JAX's bf16 rounding op by op; a jitted JAX model keeps
+        excess precision inside XLA's fusion, ~1.4% of outputs a ulp off).
+    The MLP half always goes through `fused_ln_mlp`: JAX's
+    `mlp_impl="fused"` numerics, whose LayerNorm keeps f32 statistics
+    (held against JAX in bf16, one block deep and for the whole model, by
+    tests/test_torch_bf16_parity.py).
+    Not ported: the TPU crossovers behind "auto" (dense below
+    MIN_SCORE_WORK); JAX's default `mlp_impl="xla"` in bf16, which rounds
+    fc1's output to bf16 before its bias and GELU; `ln_f32=False` for the
+    LayerNorm before the MLP (bf16 statistics)."""
     img_size: Tuple[int, int] = (448, 448)
     patch_size: Tuple[int, int] = (16, 16)
     in_chans: int = 3

@@ -187,8 +187,18 @@ def group_norm1(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def conv2d(p, x: torch.Tensor, stride: int = 1,
            padding: str | Sequence = "TORCH") -> torch.Tensor:
     """NHWC/HWIO conv. "TORCH" pads k//2 per side (torch Conv2d(padding=k//2));
-    "VALID" pads nothing."""
+    "VALID" pads nothing.
+
+    In f32, a VALID conv whose stride is its square kernel (the neck's
+    2x2 / 2 down32 conv, the only conv of the VPU model) is a patch matmul:
+    it then never meets cuDNN, whose `allow_tf32` defaults to True
+    (PyTorch's matmul default is full f32), in the forward or the backward.
+    Every other conv goes to cuDNN under torch's flags."""
     kh, kw = p.w.shape[0], p.w.shape[1]
+    if x.dtype == torch.float32 and padding == "VALID" and kh == kw == stride:
+        b, h, w, c = x.shape
+        x = x[:, :h // kh * kh, :w // kw * kw]
+        return patch_embed(p, x, (kh, kw)).reshape(b, h // kh, w // kw, -1)
     if padding == "TORCH":
         pad = (kh // 2, kw // 2)
     elif padding == "VALID":
@@ -222,7 +232,8 @@ def patch_embed(p, x: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
     gh, gw = h // ph, w // pw
     x = x.reshape(b, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(b, gh * gw, ph * pw * c)
-    return x @ p.w.to(x.dtype) + p.b.to(x.dtype)
+    w = p.w.reshape(ph * pw * c, -1)        # (ph*pw*c, D) or HWIO
+    return x @ w.to(x.dtype) + p.b.to(x.dtype)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,9 +8,17 @@ component's label is the largest flat index r * W + c + 1 among its pixels,
 0 is background. A component that needs more than `iters` rounds keeps
 partial labels, exactly as the JAX kernels do (the bounded-round contract).
 
-The CUDA kernels (csrc/cc.cu) take any H, W up to MAX_SIDE and are
+The CUDA kernels (csrc/cc.cu) run all rounds of a call in one cooperative
+launch on the caller's stream (no host sync, no allocation, capturable in
+a CUDA graph), take any B >= 1 and any H, W up to MAX_SIDE, and are
 bit-identical to the plain versions, which repeat the JAX kernels' shifts
-and log-step doubling on int32 tensors.
+and log-step doubling on int32 tensors. Values must be non-negative (the
+JAX kernels' contract); labels always are.
+
+A launch's grid barrier is a word of the stream it runs on (`_slot`), so
+calls on different streams may run concurrently. A CUDA graph keeps the
+word of the stream it was captured on: replay it where no CC call on that
+stream runs at the same time.
 """
 from __future__ import annotations
 
@@ -82,6 +90,22 @@ def component_max_plain(masks: torch.Tensor, values: torch.Tensor,
     return _flood(torch.where(masks, values.to(torch.int32), 0), masks, iters)
 
 
+_slots: dict = {}      # (device index, stream handle) -> barrier word
+
+
+def _slot(t: torch.Tensor, lib) -> int:
+    """The barrier word of the current stream on t's device: its own for
+    every stream, so no two concurrently running grids share one."""
+    key = (t.device.index, _build.stream_of(t))
+    if key not in _slots:
+        taken = sum(k[0] == key[0] for k in _slots)
+        if taken >= lib.pvpu_cc_barriers():
+            raise RuntimeError(f"CC kernels: more than {taken} streams on "
+                               f"device {key[0]}, no barrier word left")
+        _slots[key] = taken
+    return _slots[key]
+
+
 def _checked(masks: torch.Tensor, iters: int, what: str) -> torch.Tensor:
     if masks.dtype != torch.bool or masks.dim() != 3:
         raise TypeError(f"{what}: (B, H, W) bool masks required, got "
@@ -98,7 +122,7 @@ def _checked(masks: torch.Tensor, iters: int, what: str) -> torch.Tensor:
 
 def cc_labels(masks: torch.Tensor, iters: int = 8) -> torch.Tensor:
     """(B, H, W) bool -> int32 labels. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel (2 * iters passes, counted as one)."""
+    a CUDA tensor launches the kernel (one launch for all `iters` rounds)."""
     if masks.device.type != "cuda":
         return cc_labels_plain(masks, iters)
     m = _checked(masks, iters, "cc_labels")
@@ -108,15 +132,17 @@ def cc_labels(masks: torch.Tensor, iters: int = 8) -> torch.Tensor:
     lib = _build.library()
     _build.check(lib.pvpu_cc_labels(m.data_ptr(), out.data_ptr(),
                                     scratch.data_ptr(), b, h, w, iters,
-                                    _build.stream_of(m)), "cc_labels")
+                                    _slot(m, lib), _build.stream_of(m)),
+                 "cc_labels")
     cc_labels.launches += 1
     return out
 
 
 def component_max(masks: torch.Tensor, values: torch.Tensor,
                   iters: int = 8) -> torch.Tensor:
-    """Per-component max of int32 `values` (B, H, W). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel."""
+    """Per-component max of non-negative int32 `values` (B, H, W). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (one
+    launch)."""
     if masks.device.type != "cuda":
         return component_max_plain(masks, values, iters)
     m = _checked(masks, iters, "component_max")
@@ -131,7 +157,8 @@ def component_max(masks: torch.Tensor, values: torch.Tensor,
     lib = _build.library()
     _build.check(lib.pvpu_component_max(m.data_ptr(), v.data_ptr(),
                                         out.data_ptr(), scratch.data_ptr(),
-                                        b, h, w, iters, _build.stream_of(m)),
+                                        b, h, w, iters, _slot(m, lib),
+                                        _build.stream_of(m)),
                  "component_max")
     component_max.launches += 1
     return out

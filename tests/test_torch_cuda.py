@@ -6,7 +6,8 @@ without tests/conftest.py, which imports JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 attention 1e-4 (scalar FMAs vs cuBLAS f32, TF32 off); bf16
+Torch's precision flags are left as they come (the package pins its own).
+Tolerances: f32 attention 1e-4 (scalar FMAs vs cuBLAS f32, not TF32); bf16
 attention atol 5e-3 for the fused entry and 1.5e-2 for the flash entry,
 about 2-3x the error measured on an H100 (the fused entry shares its plain
 version's rounding points; the flash entry rounds P before normalizing, its
@@ -40,8 +41,6 @@ from pvpuformer_tpu_torch.ops import fused_mlp
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -256,25 +255,67 @@ def _speckles():
     return m
 
 
-CC_CASES = {"path": _blobs(0, 2, 448, 448), "snake": _snake(),
-            "speckles": _speckles(), "ragged": _blobs(1, 3, 74, 53, 4),
-            "empty": np.zeros((2, 30, 40), bool)}
+def _mask(name):
+    """(B, H, W) masks by name, made when a test asks (some are large); the
+    new cases share chip_smoke.py's generators (CC_MASKS): a 448 x 448
+    spiral (more than 16 rounds, runs across every segment and pass
+    boundary), full and 50176-component masks, 1 x W and H x 1 lines, and a
+    4096 x 4096 image."""
+    import chip_smoke
+    own = {"path": lambda: _blobs(0, 2, 448, 448), "snake": _snake,
+           "speckles": _speckles, "ragged": lambda: _blobs(1, 3, 74, 53, 4),
+           "empty": lambda: np.zeros((2, 30, 40), bool)}
+    return (own.get(name) or chip_smoke.CC_MASKS[name])()
+
+
+CC_CASES = ("path", "snake", "speckles", "ragged", "empty", "spiral", "full",
+            "dots", "row", "column", "long row", "long column", "large")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CC_CASES))
 def test_cc_kernels_bit_exact(cuda, case):
-    m = torch.from_numpy(CC_CASES[case]).to(cuda)
+    """Both kernels bit-exact against their plain versions and bit-identical
+    on repeat at iters 1, 2, 8 and 16; one launch counted per call."""
+    m = torch.from_numpy(_mask(case)).to(cuda)
     v = torch.randint(0, 10 ** 6, m.shape, dtype=torch.int32,
                       generator=torch.Generator().manual_seed(1)).to(cuda)
     n0, n1 = cc.cc_labels.launches, cc.component_max.launches
-    for iters in (1, 8):
+    for iters in (1, 2, 8, 16):
         got = cc.cc_labels(m, iters)
         got_v = cc.component_max(m, v, iters)
         torch.cuda.synchronize()
-        assert torch.equal(got, cc.cc_labels_plain(m, iters))
-        assert torch.equal(got_v, cc.component_max_plain(m, v, iters))
-    assert (cc.cc_labels.launches, cc.component_max.launches) == (n0 + 2, n1 + 2)
+        assert torch.equal(got, cc.cc_labels_plain(m, iters)), iters
+        assert torch.equal(got_v, cc.component_max_plain(m, v, iters)), iters
+        assert torch.equal(got, cc.cc_labels(m, iters))
+        assert torch.equal(got_v, cc.component_max(m, v, iters))
+    assert (cc.cc_labels.launches,
+            cc.component_max.launches) == (n0 + 8, n1 + 8)
+
+
+@pytest.mark.cuda
+def test_cc_kernels_on_concurrent_streams(cuda):
+    """Calls on four streams, queued with no sync between them so their
+    grids can run at the same time: each stream has its own barrier word,
+    and every result is bit-exact."""
+    masks = [torch.from_numpy(_blobs(s, 2, 448, 448)).to(cuda)
+             for s in range(4)]
+    v = torch.randint(0, 10 ** 6, masks[0].shape, dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(2)).to(cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in masks]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    got, slots = [], set()
+    for _ in range(3):
+        for m, s in zip(masks, streams):
+            with torch.cuda.stream(s):
+                got.append((m, cc.cc_labels(m, 16), cc.component_max(m, v)))
+                slots.add(cc._slot(m, cc._build.library()))
+    torch.cuda.synchronize()
+    assert len(slots) == len(streams)
+    for m, labels, vmax in got:
+        assert torch.equal(labels, cc.cc_labels_plain(m, 16))
+        assert torch.equal(vmax, cc.component_max_plain(m, v))
 
 
 @pytest.mark.cuda
@@ -335,6 +376,53 @@ def test_prompt_session_cuda_matches_cpu(cuda, mode, multi):
         pred.run_clicks(3)
         clicks.append(pred.clicks)
     np.testing.assert_array_equal(clicks[0], clicks[1])
+
+
+def default_flags_check():
+    """Run in a fresh process by the test below, with torch's precision
+    flags left as they come: a tiny-config f32 forward on the card against
+    the CPU (logits within 1e-4, absolute and relative: the port's f32
+    tolerance against JAX), then chip_smoke.py phase 4's 5-click f32
+    session (identical clicks, IoU within 1e-5)."""
+    import chip_smoke
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+    dev = torch.device("cuda")
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    cfg = chip_smoke.tiny_config()
+    r = np.random.default_rng(3)
+    img = torch.from_numpy(r.uniform(size=(2, 64, 64, 4)).astype(np.float32))
+    pts = torch.full((2, 12, 3), -1.0)
+    pts[0, 0] = torch.tensor([20.0, 30.0, 0.0])
+    pts[1, 6] = torch.tensor([50.0, 50.0, 1.0])
+    out = {}
+    for where in ("cpu", dev):
+        model = init_vpu(cfg, torch.Generator().manual_seed(1), "cpu")
+        model.to(where)
+        out[str(where)] = model(img.to(where), pts.to(where))[
+            "instances"].cpu()
+    err = float((out["cpu"] - out[str(dev)]).abs().max())
+    print(f"flags {flags}: f32 forward cuda vs cpu max |d logits| {err:.2e}")
+    np.testing.assert_allclose(out[str(dev)].numpy(), out["cpu"].numpy(),
+                               atol=1e-4, rtol=1e-4)
+    chip_smoke.phase_parity(dev)
+
+
+@pytest.mark.cuda
+def test_f32_forward_and_session_match_cpu_under_torch_default_flags(cuda):
+    """Regression: torch's default cudnn.allow_tf32 (True) ran the neck's f32
+    conv in TF32 on the card; the package now keeps its f32 products in f32
+    whatever the process's flags. The check runs in a fresh process, since
+    this file's fixture and other tests may have set flags here."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys; sys.path[:0] = ['tests', '.']; "
+            "import test_torch_cuda as t; t.default_flags_check()")
+    run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
 
 
 BWD_CASES = [((128, 196, 12, 64), torch.bfloat16), ((32, 784, 12, 64),
