@@ -13,7 +13,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      at every mask of CC_MASKS: a snake and a spiral that need more than 8
      rounds, 50176 components, ragged, empty, full, 1 x W and H x 1 masks,
      a 4096 x 4096 image; one CUDA kernel per call, counted with
-     torch.profiler; and whether torch's
+     torch.profiler; the min-plus kernel bit-exact, bit-identical on repeat
+     and one CUDA kernel per call at the click and training shapes, two
+     ragged ones and the widest row, W = 8192, with values up to 2^24 - 1,
+     with its device time at the path shapes; and whether torch's
      allow_bf16_reduced_precision_reduction changes a bf16 linear at the
      model's shapes), with the
      error beside its tolerance, the kernel time beside the plain time, the
@@ -92,8 +95,7 @@ PROMPT_VARIANTS = {(1, True): (1, 1, 2), (2, True): (2, 2, 2),
                    (1, False): (0, 0, 1), (2, False): (1, 1, 1)}
 
 # NVIDIA H100 SXM datasheet peaks: dense bf16 tensor
-# cores, f32 on the CUDA cores (the min-plus adds are counted at this rate),
-# HBM3 bytes/s
+# cores, f32 on the CUDA cores, HBM3 bytes/s
 PEAK_BF16 = 989e12
 PEAK_CUDA_CORE = 67e12
 PEAK_BYTES = 3.35e12
@@ -108,6 +110,14 @@ PEAK_INT32 = 132 * 64 * 1.98e9
 # final mask 1. The Pallas CostEstimate's 60 is the TPU's log-step doubling.
 CC_OPS = 16
 CC_ITERS = (1, 2, 8, 16)
+# int32 operations per element for the min-plus row pass as a linear lower
+# envelope (csrc/edt_minplus.cu): the site's Y = c'^2 + f 1; the hull test
+# (two differences of Y, two of the index, two products, one compare) 7, run
+# once when the site is pushed and once when it is removed, 14; the column's
+# value (c - c')^2 + f 2, and one compare with the next site's value (2 + 1),
+# 5. The brute force's 2 W f32 operations per element are the TPU kernel's
+# dense form, not the least work.
+MINPLUS_OPS = 20
 
 
 def _log(msg: str) -> None:
@@ -299,14 +309,39 @@ def phase_kernels(dev):
                      *((1e-2, 0.0) if bf16 else (1e-4, 1e-4)))
         record("fused_attention_bwd", r, label == "global", bound, lib_ms)
     # the click path's flip batch (2 masks x 448 rows, both error masks),
-    # the training path's next_clicks at batch 32 (2 x 32 x 448 rows), edges
-    for shape in ((896, 448), (28672, 448), (74, 53), (64, 1000)):
-        f = torch.randint(0, 300, shape, generator=g).float().square().to(dev)
-        r = _compare(f"minplus_rows {shape}", lambda: edt_minplus.minplus_rows(f),
+    # the training path's next_clicks at batch 32 (2 x 32 x 448 rows), edges,
+    # and the widest row (MAX_W) with values up to the domain's 2^24 - 1;
+    # bit-exact, one CUDA kernel per call; at the two path shapes the device
+    # time (20 calls replayed from a CUDA graph). Bound: MINPLUS_OPS per
+    # element at the int32 rate or the bytes; beside it, in the log only,
+    # the brute force's 2 W f32 operations per element
+    for shape in ((896, 448), (28672, 448), (74, 53), (64, 1000), (2, 8192)):
+        f = (torch.randint(0, 2 ** 24, shape, generator=g).float()
+             if shape[1] == 8192 else
+             torch.randint(0, 300, shape, generator=g).float().square()).to(dev)
+        call = lambda: edt_minplus.minplus_rows(f)  # noqa: E731
+        r = _compare(f"minplus_rows {shape}", call,
                      lambda: edt_minplus.minplus_rows_plain(f), 0, 0, exact=True)
-        record("minplus_rows", r, shape == (896, 448),
-               _bound(2.0 * shape[0] * shape[1] ** 2, PEAK_CUDA_CORE,
-                      8.0 * shape[0] * shape[1]))
+        if not torch.equal(call(), call()):
+            raise AssertionError(f"minplus_rows {shape}: repeat differs")
+        kernels = _cuda_kernels(call)
+        _log(f"    CUDA kernels per call (torch.profiler) {kernels}")
+        if len(kernels) != 1:
+            raise AssertionError(f"minplus_rows {shape}: {len(kernels)} CUDA "
+                                 f"kernels per call, not one: {kernels}")
+        rows, w = shape
+        old = _bound(2.0 * rows * w * w, PEAK_CUDA_CORE, 8.0 * rows * w)
+        _log(f"    old bound (brute force, 2 W f32 operations per element) "
+             f"{old[0] * 1e3:.2f} us ({old[1]})")
+        path = shape in ((896, 448), (28672, 448))
+        dev_ms = _device_ms(call) if path else None
+        bound = _bound(MINPLUS_OPS * rows * w, PEAK_INT32, 8.0 * rows * w)
+        record("minplus_rows", r, shape == (896, 448), bound,
+               device=(dev_ms, None))
+        if shape == (28672, 448):
+            times["minplus_rows"].update(ms_train=r[1], plain_ms_train=r[2],
+                                         device_ms_train=dev_ms,
+                                         bound_ms_train=bound[0])
     # operands at the JAX kernel test's scale (weights and biases N(0, 0.05)):
     # the MLP term is then ~3x the residual, so dropping b1, b2, beta or 32
     # rows of a weight breaks the tolerance (PERF.md, Findings)
@@ -460,17 +495,36 @@ def phase_cc(dev, g, record, times):
                                           bound_ms_train=bound[0])
 
 
-def _cuda_kernels(fn):
-    """The names of the CUDA kernels one call of `fn` launches."""
+def _cuda_kernels(fn, sessions: int = 3):
+    """The names of the CUDA kernels one call of `fn` launches.
+
+    The profiler can lose a session's kernels (a process's first session
+    has come back empty on the H100), so each session brackets the call
+    with a marker, one fill kernel launched before it and one after, each
+    behind a synchronize. The call's kernels are those that start between
+    the two markers; a session that lost either marker proves nothing and
+    is taken again, at most `sessions` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    marker = torch.empty(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(0.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            marker.fill_(1.0)
+            torch.cuda.synchronize()
+        seen = sorted((e.time_range.start, e.name) for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if (len(seen) >= 2 and seen[0][1] == seen[-1][1]
+                and "Fill" in seen[0][1]):
+            return [name for _, name in seen[1:-1]]
+    raise AssertionError(f"the profiler lost the markers in {sessions} "
+                         f"sessions; the last saw {[n for _, n in seen]}")
 
 
 def ln_mlp_chain(x, ln, mlp):

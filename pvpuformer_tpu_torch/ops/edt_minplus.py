@@ -1,8 +1,10 @@
 """EDT min-plus row pass: kernel wrapper and plain version.
 
 Counterpart of pvpuformer_tpu/ops/edt_pallas.py (`minplus_rows`). The CUDA
-kernel (csrc/edt_minplus.cu) stages rows of f in shared memory, so W is
-bounded by MAX_W; a wider input raises.
+kernel (csrc/edt_minplus.cu) computes each row's exact lower envelope in
+integer arithmetic, one warp per row with the row in shared memory, so W is
+bounded by MAX_W; a wider input raises. Its input domain is the EDT's pass
+1: integer-valued f32 in [0, 2^24); the kernel traps on any other value.
 """
 from __future__ import annotations
 
@@ -12,8 +14,7 @@ import torch
 
 from . import _build
 
-MAX_W = 8192          # csrc/edt_minplus.cu: ROWS x MAX_W f32 of shared memory
-_BIG = 3.4e38
+MAX_W = 8192          # csrc/edt_minplus.cu: 10 W bytes of shared memory a row
 
 
 def minplus_rows_plain(f: torch.Tensor, chunk: Optional[int] = 32
@@ -35,8 +36,9 @@ def minplus_rows(f: torch.Tensor, chunk: Optional[int] = 32) -> torch.Tensor:
     """(..., H, W) f32 -> per-row min-plus with the squared-offset kernel.
 
     A CPU tensor takes the plain version (`chunk` sizes its blocks); a CUDA
-    tensor launches the kernel, whose result is bit-identical (exact
-    integer-valued f32)."""
+    tensor launches the kernel, whose result is bit-identical for f in the
+    kernel's domain, integer-valued in [0, 2^24) (a value outside it traps
+    the launch: the CUDA context is lost)."""
     if f.device.type != "cuda":
         return minplus_rows_plain(f, chunk)
     if f.dtype != torch.float32:

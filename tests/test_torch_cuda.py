@@ -11,7 +11,9 @@ Tolerances: f32 attention 1e-4 (scalar FMAs vs cuBLAS f32, not TF32); bf16
 attention atol 5e-3 for the fused entry and 1.5e-2 for the flash entry,
 about 2-3x the error measured on an H100 (the fused entry shares its plain
 version's rounding points; the flash entry rounds P before normalizing, its
-plain version after); min-plus bit-exact; LN+MLP bf16 atol 0.06 / rtol 0.05
+plain version after); min-plus bit-exact and bit-identical on repeat,
+also on the CPU model's adversarial rows, and trapping outside its domain;
+LN+MLP bf16 atol 0.06 / rtol 0.05
 as the JAX kernel's own test, at its operand scale (weights N(0, 0.05)), at
 the ViT-B/L/H widths and 1 to 25088 rows, and bit-identical on repeat; its
 bf16 backward within one bf16 ulp of each gradient's largest entry of
@@ -148,6 +150,59 @@ def test_minplus_kernel_bit_exact(cuda, shape):
 def test_minplus_kernel_raises_above_its_tile(cuda):
     with pytest.raises(ValueError, match="W=8193"):
         edt_minplus.minplus_rows(torch.zeros(2, 8193, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(896, 448), (28672, 448), (2, 8192),
+                                   (74, 53), (64, 1000), (5, 33), (3, 1),
+                                   (129, 448), (4099, 31)])
+def test_minplus_kernel_bit_exact_on_adversarial_rows(cuda, shape):
+    """The CPU model's inputs (tests/test_torch_minplus_envelope.py: pass-1
+    rows of blobs, a spiral, full and empty masks, one zero, ties, collinear
+    sites, a ramp, values at 2^24 - 1) at the click, training and widest
+    shapes and ragged row counts: bit-exact, bit-identical on repeat, one
+    launch per call."""
+    from test_torch_minplus_envelope import adversarial
+    f = _t(adversarial(*shape), dev=cuda)
+    n0 = edt_minplus.minplus_rows.launches
+    got = edt_minplus.minplus_rows(f)
+    again = edt_minplus.minplus_rows(f)
+    assert edt_minplus.minplus_rows.launches == n0 + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, edt_minplus.minplus_rows_plain(f))
+
+
+MINPLUS_TRAP = """
+import sys
+import torch
+sys.path.insert(0, '.')
+from pvpuformer_tpu_torch.ops import edt_minplus
+f = torch.zeros(3, 448, device="cuda")
+print(float(edt_minplus.minplus_rows(f).sum()), flush=True)
+f[1, 200] = {bad}
+edt_minplus.minplus_rows(f)
+torch.cuda.synchronize()
+print("no trap", flush=True)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["-1.0", "0.5", "2.0 ** 24", "float('nan')"])
+def test_minplus_kernel_traps_outside_its_domain(cuda, bad):
+    """A value outside integer-valued [0, 2^24) traps the launch (the CUDA
+    context is lost, so each case runs in a fresh process)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    run = subprocess.run([sys.executable, "-c", MINPLUS_TRAP.format(bad=bad)],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    assert run.stdout.startswith("0.0\n"), run.stdout + run.stderr[-2000:]
+    assert "no trap" not in run.stdout
+    assert run.returncode != 0
+    assert "CUDA error" in run.stderr or "cudaError" in run.stderr, \
+        run.stderr[-2000:]
 
 
 def _ln_mlp(r, d, hidden, dev, dt=torch.bfloat16):
