@@ -8,7 +8,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      they come (the package pins its own precision);
   2. build: nvcc compiles pvpuformer_tpu_torch/csrc/*.cu into build/kernels/;
   3. kernels vs their plain PyTorch versions on the card, at the ViT-B@448
-     click-, prompt- and training-path (batch 32) shapes (and the CC
+     click-, prompt- and training-path (batch 32) shapes, the batched
+     sessions' shapes at B = 8 (B = 16's are the training shapes), and the
+     ViT-L / ViT-H click shapes (head dims 64 and 80, LN+MLP at 1024 ->
+     4096 and 1280 -> 5120) (and the CC
      kernels, bit-exact and bit-identical on repeat at iters 1, 2, 8 and 16,
      at every mask of CC_MASKS: a snake and a spiral that need more than 8
      rounds, 50176 components, ragged, empty, full, 1 x W and H x 1 masks,
@@ -61,19 +64,41 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      equal to what the drawn prompt types predict; ms per step, peak
      memory, the device-busy share of one more profiled step, and the host
      syncs of one more step under torch's sync debug mode;
+ 10. evaluation parity: `evaluate_dataset` and `BatchedEvaluator` (B = 2,
+     the last chunk padded) on Synthetic(3, (64, 64)), 5 clicks, tiny
+     config f32, CUDA vs the CPU: identical clicks, IoU within 1e-5,
+     identical NoC lists; on each device batched = sequential;
+ 11. batched evaluation: ViT-B@448 bf16, seeded random weights, 21
+     objects (16 of Synthetic 448 x 448, 5 of 300 x 500: two canvas
+     buckets, padded chunks) x 20 clicks, through sequential
+     `evaluate_dataset` and `BatchedEvaluator` at B = 8 and 16: objects/s,
+     clicks/s, ms per click round and each kernel's launches per round,
+     which must be the same for every B (depth fused attention, depth
+     LN+MLP, one min-plus); curves finite in [0, 1] of the right length;
+     the share of sessions whose clicks equal the sequential run's and the
+     max |dIoU| (reported, not gated: bf16 products may round by the
+     batch); one `batched_click_step` captured into a CUDA graph; the EDT
+     pass-1 forms' times at B = 16's masks;
+ 12. presets: one 3-click bf16 session each of ViT-L@448 and ViT-H@448,
+     random weights, launch counts equal to the wrapper calls;
 then one JSON line of kernel summaries, the card's name and power limit,
 and, last, {"ok": true, "device": ...}.
 
     python3 chip_smoke.py --profile
 
 instead runs phases 1-2 and then profiles ViT-B@448 bf16 clicks of the
-click path and of the four prompt variants with torch.profiler (CPU + CUDA
-activities): device time per click by kernel group, launches per click,
-the device busy share under the profiler, and the host-clock median of
-unprofiled clicks beside it.
+click path and of the four prompt variants, and batched click rounds at B
+= 8 and 16, with torch.profiler (CPU + CUDA activities): device time per
+round by kernel group, launches per round, the device busy share under
+the profiler, and the host-clock median of unprofiled rounds beside it.
+
+No phase's depth was cut for time: the whole script, the build included,
+takes about 110 s on an NVIDIA H100 80GB HBM3 at 700 W, of its 1200 s
+limit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -252,7 +277,16 @@ def phase_kernels(dev):
             ("global", (2, 784, 12, 64), (torch.bfloat16, torch.float32),
              both),
             ("train window", (128, 196, 12, 64), (torch.bfloat16,), both[:1]),
-            ("train global", (32, 784, 12, 64), (torch.bfloat16,), both[:1])):
+            ("train global", (32, 784, 12, 64), (torch.bfloat16,), both[:1]),
+            # batched sessions, B = 8 (model batch 16; B = 16 gives the
+            # training shapes), and the ViT-L / ViT-H click shapes (head
+            # dims 64 and 80)
+            ("B=8 window", (64, 196, 12, 64), (torch.bfloat16,), both[:1]),
+            ("B=8 global", (16, 784, 12, 64), (torch.bfloat16,), both[:1]),
+            ("ViT-L window", (8, 196, 16, 64), (torch.bfloat16,), both[:1]),
+            ("ViT-L global", (2, 784, 16, 64), (torch.bfloat16,), both[:1]),
+            ("ViT-H window", (8, 256, 16, 80), (torch.bfloat16,), both[:1]),
+            ("ViT-H global", (2, 1024, 16, 80), (torch.bfloat16,), both[:1])):
         for dt in dts:
             q, k, v = (torch.randn(shape, generator=g).to(dev, dt)
                        for _ in range(3))
@@ -309,13 +343,15 @@ def phase_kernels(dev):
                      *((1e-2, 0.0) if bf16 else (1e-4, 1e-4)))
         record("fused_attention_bwd", r, label == "global", bound, lib_ms)
     # the click path's flip batch (2 masks x 448 rows, both error masks),
-    # the training path's next_clicks at batch 32 (2 x 32 x 448 rows), edges,
+    # the training path's next_clicks at batch 32 (2 x 32 x 448 rows), the
+    # batched sessions' oracle at B = 8 and 16 (2 x B x 448 rows), edges,
     # and the widest row (MAX_W) with values up to the domain's 2^24 - 1;
     # bit-exact, one CUDA kernel per call; at the two path shapes the device
     # time (20 calls replayed from a CUDA graph). Bound: MINPLUS_OPS per
     # element at the int32 rate or the bytes; beside it, in the log only,
     # the brute force's 2 W f32 operations per element
-    for shape in ((896, 448), (28672, 448), (74, 53), (64, 1000), (2, 8192)):
+    paths = ((896, 448), (28672, 448), (7168, 448), (14336, 448))
+    for shape in paths + ((74, 53), (64, 1000), (2, 8192)):
         f = (torch.randint(0, 2 ** 24, shape, generator=g).float()
              if shape[1] == 8192 else
              torch.randint(0, 300, shape, generator=g).float().square()).to(dev)
@@ -333,8 +369,7 @@ def phase_kernels(dev):
         old = _bound(2.0 * rows * w * w, PEAK_CUDA_CORE, 8.0 * rows * w)
         _log(f"    old bound (brute force, 2 W f32 operations per element) "
              f"{old[0] * 1e3:.2f} us ({old[1]})")
-        path = shape in ((896, 448), (28672, 448))
-        dev_ms = _device_ms(call) if path else None
+        dev_ms = _device_ms(call) if shape in paths else None
         bound = _bound(MINPLUS_OPS * rows * w, PEAK_INT32, 8.0 * rows * w)
         record("minplus_rows", r, shape == (896, 448), bound,
                device=(dev_ms, None))
@@ -353,43 +388,51 @@ def phase_kernels(dev):
     # (`fused_ln_mlp_bwd`, bf16 operands, f32 parameters as the training
     # path has them) against autograd through the plain version, which is
     # also its time's yardstick
-    d, hid = 768, 3072
-    ln, mlp = nn.Norm(d), nn.Mlp(d, hid)
-    with torch.no_grad():
-        ln.scale.normal_(1.0, 0.1, generator=g)
-        ln.bias.normal_(0.0, 0.1, generator=g)
-        for p in mlp.parameters():
-            p.normal_(0.0, 0.05, generator=g)
-    params32 = [t.detach().to(dev) for t in (ln.scale, ln.bias, mlp.fc1.w,
-                                              mlp.fc1.b, mlp.fc2.w, mlp.fc2.b)]
-    ln.to(dev, torch.bfloat16)
-    mlp.to(dev, torch.bfloat16)
     mlp_extra = {}
-    for m in (1568, 32 * 784):
-        x = torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
-        call = lambda: fused_mlp.fused_ln_mlp(x, ln, mlp)  # noqa: E731
-        r = _compare(
-            f"fused_ln_mlp ({m},{d})->{hid} bf16", call,
-            lambda: fused_mlp.fused_ln_mlp_plain(
-                x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w,
-                mlp.fc2.b, 1e-6), 0.06, 0.05)
-        if not torch.equal(call(), call()):
-            raise AssertionError("fused_ln_mlp: not bit-identical on repeat")
-        chain = lambda: ln_mlp_chain(x, ln, mlp)  # noqa: E731
-        dev_ms, chain_ms = _device_ms(call), _device_ms(chain)
-        mlp_extra[m] = (dev_ms, chain_ms)
-        record("fused_ln_mlp", r, m == 1568,
-               _bound(4.0 * m * d * hid, PEAK_BF16,
-                      2.0 * (2 * m * d + 2 * d * hid + hid + d) + 4.0 * 2 * d),
-               device=(dev_ms, chain_ms), yardstick="cuBLAS chain",
-               extra={"chain_device_ms": chain_ms})
-        del x
+    # (D, hidden, rows): ViT-B's click, batched B = 8 and training rows,
+    # ViT-L's and ViT-H's click rows (2 x 784, 2 x 1024 tokens)
+    for d, hid, rows in ((768, 3072, (1568, 16 * 784, 32 * 784)),
+                         (1024, 4096, (1568,)), (1280, 5120, (2048,))):
+        ln, mlp = nn.Norm(d), nn.Mlp(d, hid)
+        with torch.no_grad():
+            ln.scale.normal_(1.0, 0.1, generator=g)
+            ln.bias.normal_(0.0, 0.1, generator=g)
+            for p in mlp.parameters():
+                p.normal_(0.0, 0.05, generator=g)
+        if d == 768:
+            params32 = [t.detach().to(dev) for t in (
+                ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w, mlp.fc2.b)]
+        ln.to(dev, torch.bfloat16)
+        mlp.to(dev, torch.bfloat16)
+        for m in rows:
+            x = torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
+            call = lambda: fused_mlp.fused_ln_mlp(x, ln, mlp)  # noqa: E731
+            r = _compare(
+                f"fused_ln_mlp ({m},{d})->{hid} bf16", call,
+                lambda: fused_mlp.fused_ln_mlp_plain(
+                    x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w,
+                    mlp.fc2.b, 1e-6), 0.06, 0.05)
+            if not torch.equal(call(), call()):
+                raise AssertionError("fused_ln_mlp: not bit-identical on "
+                                     "repeat")
+            chain = lambda: ln_mlp_chain(x, ln, mlp)  # noqa: E731
+            dev_ms, chain_ms = _device_ms(call), _device_ms(chain)
+            mlp_extra[m, d] = (dev_ms, chain_ms)
+            record("fused_ln_mlp", r, (m, d) == (1568, 768),
+                   _bound(4.0 * m * d * hid, PEAK_BF16,
+                          2.0 * (2 * m * d + 2 * d * hid + hid + d)
+                          + 4.0 * 2 * d),
+                   device=(dev_ms, chain_ms), yardstick="cuBLAS chain",
+                   extra={"chain_device_ms": chain_ms})
+            del x
+    d = 768
     m = 32 * 784
     x, gy = (torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
              for _ in range(2))
     bwd_ms, recompute_ms = phase_mlp_bwd(x, params32, gy)
     times["fused_ln_mlp"].update(
-        device_ms_train=mlp_extra[m][0], chain_device_ms_train=mlp_extra[m][1],
+        device_ms_train=mlp_extra[m, d][0],
+        chain_device_ms_train=mlp_extra[m, d][1],
         bwd_ms_train=bwd_ms, recompute_bwd_ms_train=recompute_ms)
     del x, gy
     phase_bf16_reduction(dev, g)
@@ -845,7 +888,8 @@ def phase_prompts(dev, card: str, model):
     import torch
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
                                                          PredictorConfig,
-                                                         _prompt_noise)
+                                                         _prompt_noise,
+                                                         click_step)
 
     mcfg = model.cfg
     rng = np.random.default_rng(0)
@@ -907,30 +951,28 @@ def phase_prompts(dev, card: str, model):
     preds.append(pred)
     side = torch.cuda.Stream()
     for p in preds:
-        _capture_click(p, side)
+        _capture(lambda: click_step(p.model, p.cfg, p.state, p.gen), side)
     _log("  one more click_step of the click path and of each variant was "
          "captured into a CUDA graph (not replayed): no synchronizing call")
     return total, medians
 
 
-def _capture_click(pred, side):
-    """One more click_step captured into a torch.cuda.CUDAGraph (not
-    replayed), after a warm-up click, both on the stream `side`. A capture
-    fails on any call that synchronizes with the host, so a clean one
-    proves the click has none (the sync debug mode above only bounds them).
-    The prompt draws' pinned host copy (`_prompt_noise`) is accepted under
-    capture as it is. One stream for every capture: torch keeps a cuBLAS
-    workspace per stream (32 MiB each), which would otherwise stay
-    allocated into phase 9's peak memory."""
+def _capture(step, side):
+    """One more `step()` (a click round) captured into a
+    torch.cuda.CUDAGraph (not replayed), after a warm-up call, both on the
+    stream `side`. A capture fails on any call that synchronizes with the
+    host, so a clean one proves the round has none (the sync debug mode
+    only bounds them). The prompt draws' pinned host copy (`_prompt_noise`)
+    is accepted under capture as it is. One stream for every capture of a
+    phase: torch keeps a cuBLAS workspace per stream (32 MiB each), which
+    would otherwise stay allocated into phase 9's peak memory."""
     import torch
-    from pvpuformer_tpu_torch.inference.predictor import click_step
-    args = (pred.model, pred.cfg, pred.state, pred.gen)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        click_step(*args)
+        step()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
-        click_step(*args)
+        step()
     torch.cuda.current_stream().wait_stream(side)
     del graph
     torch.cuda.synchronize()
@@ -1237,6 +1279,349 @@ def _train_run(dev, card, cfg, seed, plan, b):
 
 
 # kernel-name substrings -> group, first match wins (profile_paths)
+EVAL_PARITY_CLICKS = 5    # phase 10, per object
+EVAL_CLICKS = 20          # phase 11, per object
+EVAL_BATCHES = (8, 16)    # phase 11's batch sizes
+PRESET_CLICKS = 3         # phase 12, per preset
+
+
+class _Concat:
+    """Datasets one after the other."""
+
+    def __init__(self, parts):
+        self.index = [(p, i) for p in parts for i in range(len(p))]
+
+    def __len__(self):
+        return len(self.index)
+
+    def get_sample(self, i):
+        part, j = self.index[i]
+        return part.get_sample(j)
+
+
+def _recording_predictor(model, cfg, device):
+    """A Predictor that keeps each session's final click slots (device
+    tensors, read after the run)."""
+    from pvpuformer_tpu_torch.inference.predictor import Predictor
+
+    class Recording(Predictor):
+        def run_clicks(self, num_clicks):
+            out = super().run_clicks(num_clicks)
+            self.log.append(self.state.points[0])
+            return out
+    pred = Recording(model, cfg, device=device)
+    pred.log = []
+    return pred
+
+
+@contextlib.contextmanager
+def _batched_points(dataset, bev):
+    """Collect the final click slots of every batched_click_scan that
+    `bev.evaluate(dataset, ...)` runs; the yielded list is filled, after
+    the block, with one (2N, 3) tensor per object in dataset order (the
+    chunks' padding dropped). The evaluator's order: canvas bucket by
+    bucket, chunk by chunk."""
+    from pvpuformer_tpu_torch.inference import batched
+    log, out, scan = [], [], batched.batched_click_scan
+
+    def recorded(*args):
+        states, ious = scan(*args)
+        log.append(states.points)
+        return states, ious
+    batched.batched_click_scan = recorded
+    try:
+        yield out
+    finally:
+        batched.batched_click_scan = scan
+    groups, k = {}, 0
+    for i in range(len(dataset)):
+        sample = dataset.get_sample(i)
+        canvas = bev._canvas(*sample.image.shape[:2])
+        for _ in sample.objects_ids:
+            groups.setdefault(canvas, []).append(k)
+            k += 1
+    order = []
+    for items in groups.values():
+        for lo in range(0, len(items), bev.batch_size):
+            chunk = items[lo:lo + bev.batch_size]
+            order += chunk + [None] * (bev.batch_size - len(chunk))
+    slots = [p for chunk in log for p in chunk.cpu()]
+    if len(slots) != len(order):
+        raise AssertionError(f"{len(slots)} batched sessions, the evaluator "
+                             f"order has {len(order)}")
+    by_index = {i: p for i, p in zip(order, slots) if i is not None}
+    out += [by_index[i] for i in sorted(by_index)]
+
+
+def _click_order(points):
+    """(2N, 3) click slots -> the session's clicks [(y, x, positive), ...]
+    in the order they were made."""
+    import torch
+    n = points.shape[0] // 2
+    positive = (torch.arange(2 * n) < n).to(points.dtype)[:, None]
+    rows = torch.cat([points, positive], 1)
+    p = rows[rows[:, 2] >= 0]
+    return p[p[:, 2].argsort()][:, [0, 1, 3]].tolist()
+
+
+def _curves_ok(curves, n_objects, max_clicks, thr=0.95):
+    """Every curve finite, in [0, 1], cut at its first crossing of `thr`
+    (full length when it never crosses)."""
+    if len(curves) != n_objects:
+        raise AssertionError(f"{len(curves)} curves for {n_objects} objects")
+    for c in curves:
+        k = len(c)
+        if not (np.isfinite(c).all() and (c >= 0).all() and (c <= 1).all()
+                and 1 <= k <= max_clicks and (k == max_clicks or c[-1] >= thr)
+                and not (c[:-1] >= thr).any()):
+            raise AssertionError(f"bad IoU curve {c}")
+
+
+def phase_eval_parity(dev):
+    """Phase 10: `evaluate_dataset` and `BatchedEvaluator` (B = 2, so the
+    last chunk is padded) on Synthetic(3, (64, 64)), tiny config f32, on
+    CUDA and on the CPU, the same port weights: identical click sequences,
+    IoU within 1e-5, identical NoC lists; on each device batched =
+    sequential (identical clicks, IoU within 1e-5)."""
+    import torch
+    from pvpuformer_tpu_torch.inference.batched import BatchedEvaluator
+    from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
+    from pvpuformer_tpu_torch.inference.evaluation import (compute_noc_metric,
+                                                           evaluate_dataset)
+    from pvpuformer_tpu_torch.inference.predictor import PredictorConfig
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+
+    cfg = PredictorConfig(model=tiny_config(), target_size=(64, 64),
+                          min_crop_size=32)
+    ds = SyntheticDataset(n_samples=3, hw=(64, 64))
+    out = {}
+    for where in ("cpu", dev):
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+        with torch.no_grad():
+            # the random model's probabilities centred on the 0.49
+            # threshold, so the masks (and IoUs) follow the clicks
+            model.head.conv_seg.b -= 0.1
+        pred = _recording_predictor(model, cfg, where)
+        seq, _ = evaluate_dataset(ds, pred, max_iou_thr=0.95,
+                                  max_clicks=EVAL_PARITY_CLICKS)
+        bev = BatchedEvaluator(model, cfg, 2, device=where)
+        with _batched_points(ds, bev) as bat_clicks:
+            bat, _, _ = bev.evaluate(ds, max_clicks=EVAL_PARITY_CLICKS)
+        for curves in (seq, bat):
+            _curves_ok(curves, 3, EVAL_PARITY_CLICKS)
+        out[str(where)] = (seq, torch.stack(pred.log).cpu(), bat,
+                           torch.stack(bat_clicks))
+    (seq_c, clk_c, bat_c, bclk_c) = out["cpu"]
+    (seq_g, clk_g, bat_g, bclk_g) = out[str(dev)]
+    levels = np.quantile(np.concatenate(seq_c), [0.25, 0.5, 0.75])
+    thrs = sorted(levels.tolist()) + [0.85]
+
+    def err(a, b):
+        return max(float(np.abs(x - y).max()) if x.shape == y.shape
+                   else float("inf") for x, y in zip(a, b))
+    checks = {
+        "cuda vs cpu clicks": torch.equal(clk_c, clk_g),
+        "cuda vs cpu |dIoU| <= 1e-5": err(seq_c, seq_g) <= 1e-5,
+        "cuda vs cpu NoC": compute_noc_metric(seq_c, thrs,
+                                              EVAL_PARITY_CLICKS)[0]
+        == compute_noc_metric(seq_g, thrs, EVAL_PARITY_CLICKS)[0],
+        "batched vs sequential clicks (cpu)": torch.equal(bclk_c, clk_c),
+        "batched vs sequential clicks (cuda)": torch.equal(bclk_g, clk_g),
+        "batched vs sequential |dIoU| <= 1e-5 (cpu)":
+            err(bat_c, seq_c) <= 1e-5,
+        "batched vs sequential |dIoU| <= 1e-5 (cuda)":
+            err(bat_g, seq_g) <= 1e-5,
+    }
+    _log(f"  curves (cpu) {[np.round(c, 4).tolist() for c in seq_c]}; "
+         f"max |dIoU| cuda vs cpu {err(seq_c, seq_g):.2e}, batched vs "
+         f"sequential {err(bat_c, seq_c):.2e} (cpu) / {err(bat_g, seq_g):.2e}"
+         f" (cuda); NoC at {np.round(thrs, 4).tolist()}: "
+         f"{[float(v) for v in compute_noc_metric(seq_g, thrs, EVAL_PARITY_CLICKS)[0]]}")
+    _log("  " + ", ".join(f"{k}: {'ok' if v else 'FAIL'}"
+                          for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"evaluation parity: {checks}\ncpu {out['cpu']}"
+                             f"\ncuda {out[str(dev)]}")
+
+
+def phase_batched(dev, card: str):
+    """Phase 11: ViT-B@448 bf16 NoC evaluation of 21 objects x 20 clicks
+    (16 of Synthetic 448 x 448 and 5 of 300 x 500: two canvas buckets and
+    padded chunks), sequential, then BatchedEvaluator at B = 8 and 16."""
+    import torch
+    from pvpuformer_tpu_torch.inference.batched import BatchedEvaluator
+    from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
+    from pvpuformer_tpu_torch.inference.evaluation import evaluate_dataset
+    from pvpuformer_tpu_torch.inference.predictor import (PredictorConfig,
+                                                         batched_click_step,
+                                                         init_session,
+                                                         stack_states)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+    from pvpuformer_tpu_torch.ops import edt
+
+    mcfg = vpu_base_config(dtype=torch.bfloat16)
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+    pcfg = PredictorConfig(model=mcfg, target_size=mcfg.crop_size,
+                           with_flip=True)
+    parts = ((16, (448, 448), 0), (5, (300, 500), 100))  # (n, hw, seed)
+    ds = _Concat([SyntheticDataset(n_samples=n, hw=hw, seed=seed)
+                  for n, hw, seed in parts])
+    n_obj, depth = len(ds), mcfg.backbone.depth
+    sample = ds.get_sample(0)
+
+    def session():
+        return init_session(sample.image, sample.gt_mask(0),
+                            mcfg.num_max_points,
+                            pred._canvas(*sample.image.shape[:2]), dev)
+
+    def run(label, fn):
+        """fn() -> (curves, elapsed, device rounds); the counts of this
+        run alone, checked per round."""
+        _zero_counts()
+        curves, elapsed, rounds = fn()
+        torch.cuda.synchronize()
+        counts = _counts()
+        _curves_ok(curves, n_obj, EVAL_CLICKS)
+        clicks = sum(map(len, curves))
+        want = {k: 0 for k in counts}
+        want.update(fused_attention=depth * rounds, minplus_rows=rounds,
+                    fused_ln_mlp=depth * rounds)
+        per_round = {k: v / rounds for k, v in counts.items() if v}
+        res = {"curves": curves, "objects_per_sec": n_obj / elapsed,
+               "clicks_per_sec": clicks / elapsed,
+               "ms_per_round": elapsed / rounds * 1e3, "rounds": rounds,
+               "launches_per_round": per_round}
+        _log(f"  {label}: {n_obj} objects, {clicks} clicks in {rounds} "
+             f"rounds, {elapsed:.3f} s: {res['objects_per_sec']:.3f} "
+             f"objects/s, {res['clicks_per_sec']:.2f} clicks/s, "
+             f"{res['ms_per_round']:.2f} ms per round; launches per round "
+             f"{per_round} ({card})")
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, the path "
+                                 f"calls the wrappers {want} times")
+        return res
+
+    pred = _recording_predictor(model, pcfg, dev)
+    pred.set_input(sample.image, sample.gt_mask(0))
+    pred.run_clicks(2)                                   # warm-up
+    pred.log.clear()
+
+    def sequential():
+        curves, elapsed = evaluate_dataset(ds, pred, max_iou_thr=0.95,
+                                           max_clicks=EVAL_CLICKS)
+        return curves, elapsed, n_obj * EVAL_CLICKS
+    summary = {"sequential": run("sequential", sequential)}
+    seq_clicks = torch.stack(pred.log).cpu()
+    side = torch.cuda.Stream()
+    for b in EVAL_BATCHES:
+        bev = BatchedEvaluator(model, pcfg, b, device=dev)
+        with torch.no_grad():                    # warm-up at the new shapes
+            batched_click_step(model, bev.cfg,
+                               stack_states([session()] * b))
+        box = {}
+
+        def batched():
+            with _batched_points(ds, bev) as clicks:
+                curves, elapsed, stats = bev.evaluate(
+                    ds, max_clicks=EVAL_CLICKS, max_iou_thr=0.95)
+            box.update(curves=curves, clicks=clicks, stats=stats)
+            n_chunks = sum(-(-n // b) for n, _, _ in parts)
+            return curves, elapsed, n_chunks * EVAL_CLICKS
+        res = run(f"batched B={b}", batched)
+        same = [torch.equal(c, s) for c, s in
+                zip(box["clicks"], seq_clicks)]
+        # the click (1-based) where each other session leaves the
+        # sequential run's sequence
+        first = sorted(next((i + 1 for i, (u, v) in enumerate(zip(
+            _click_order(c), _click_order(s))) if u != v), 0)
+            for c, s, ok in zip(box["clicks"], seq_clicks, same) if not ok)
+        d_iou = max(float(np.abs(a[:min(len(a), len(q))]
+                                 - q[:min(len(a), len(q))]).max())
+                    for a, q in zip(box["curves"], summary["sequential"]
+                                    ["curves"]))
+        res.update(same_clicks_share=float(np.mean(same)),
+                   max_abs_diou=d_iou, first_differing_clicks=first)
+        _log(f"    vs sequential: {sum(same)} of {len(same)} sessions with "
+             f"the same clicks (share {np.mean(same):.3f}; the others "
+             f"leave it at click {first}), max |dIoU| "
+             f"{d_iou:.3e} (reported, not gated: bf16 products may round "
+             f"by the batch); stats {box['stats']}")
+        summary[f"B={b}"] = res
+        if b == EVAL_BATCHES[0]:
+            states = stack_states([session()] * b)
+            with torch.no_grad():
+                _capture(lambda: batched_click_step(model, bev.cfg, states),
+                         side)
+            _log(f"  one batched_click_step at B={b} was captured into a "
+                 f"CUDA graph (not replayed): no synchronizing call")
+    # the batched mode's pass-1 form (resolve_batched_cfg: "dense") beside
+    # the single-session "scan" form, bit-identical, at B = 16's masks
+    masks = torch.rand((2 * EVAL_BATCHES[-1], 448, 448), device=dev) > 0.5
+    p1 = {rows: _time_ms(lambda: edt._pass1(masks, rows), iters=5)
+          for rows in ("scan", "dense")}
+    if not torch.equal(edt._pass1(masks, "scan"), edt._pass1(masks, "dense")):
+        raise AssertionError("EDT pass 1: dense and scan forms differ")
+    _log(f"  EDT pass 1 at ({2 * EVAL_BATCHES[-1]}, 448, 448): scan "
+         f"{p1['scan']:.3f} ms, dense {p1['dense']:.3f} ms per call "
+         f"(bit-identical) ({card})")
+    for res in summary.values():
+        res.pop("curves", None)
+    _log("  phase 11 summary: " + json.dumps(
+        {"phase11": summary, "pass1_ms": p1, "card": card}))
+
+
+def phase_presets(dev, card: str):
+    """Phase 12: one 3-click bf16 session each of ViT-L@448 and
+    ViT-H@448 (patch 14, head dim 80), random weights, with launch counts
+    equal to the wrapper calls."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.models.vpu import (init_vpu, vpu_huge_config,
+                                                 vpu_large_config)
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    for name, make in (("ViT-L", vpu_large_config),
+                       ("ViT-H", vpu_huge_config)):
+        mcfg = make(dtype=torch.bfloat16)
+        t = time.perf_counter()
+        model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+        init_s = time.perf_counter() - t
+        pred = Predictor(model, PredictorConfig(
+            model=mcfg, target_size=mcfg.crop_size, with_flip=True),
+            device=dev)
+        pred.set_input(image, gt)
+        _zero_counts()
+        per_click, ious = [], []
+        for _ in range(PRESET_CLICKS):
+            t = time.perf_counter()
+            ious.append(pred.next_click())             # float(iou) syncs
+            per_click.append((time.perf_counter() - t) * 1e3)
+        counts = _counts()
+        depth, c = mcfg.backbone.depth, PRESET_CLICKS
+        want = {k: 0 for k in counts}
+        want.update(fused_attention=depth * c, minplus_rows=c,
+                    fused_ln_mlp=depth * c)
+        ious = np.asarray(ious)
+        _log(f"  {name}@448 (D {mcfg.backbone.embed_dim}, depth {depth}, "
+             f"patch {mcfg.backbone.patch_size[0]}, head dim "
+             f"{mcfg.backbone.embed_dim // mcfg.backbone.num_heads}): IoUs "
+             f"{np.round(ious, 4).tolist()}, ms per click "
+             f"{np.round(per_click, 2).tolist()} (the first warms up; "
+             f"weights built in {init_s:.1f} s) ({card}); launches "
+             f"{ {k: v for k, v in counts.items() if v} }")
+        if not (np.isfinite(ious).all() and (ious >= 0).all()
+                and (ious <= 1).all()):
+            raise AssertionError(f"{name}: bad IoU curve {ious}")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, the path calls "
+                                 f"the wrappers {want} times")
+        del pred, model
+        torch.cuda.empty_cache()
+
+
 KERNEL_GROUPS = (("CC kernel", "flood_kernel"),
                  ("attention backward kernel", "attention_bwd"),
                  ("attention kernel", "attention"),
@@ -1253,12 +1638,55 @@ KERNEL_GROUPS = (("CC kernel", "flood_kernel"),
 PROFILE_CLICKS = 5
 
 
-def profile_paths(dev, card: str):
-    """ViT-B@448 bf16: where a click's device time goes, per path."""
+def _profile_rounds(step, card: str, name: str) -> dict:
+    """`step()` (one round, ending in a host read) 3 times to warm up and 5
+    times on the host clock, then 5 times under torch.profiler: device ms
+    per round by kernel group, launches per round, the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(3 + PROFILE_CLICKS):
+        t = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(PROFILE_CLICKS):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / PROFILE_CLICKS
+    groups, launches, device = {}, 0, 0.0
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        g = next((grp for grp, key in KERNEL_GROUPS if key in e.key),
+                 "other elementwise / reductions")
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / PROFILE_CLICKS
+        launches += e.count
+        device += us / 1e3 / PROFILE_CLICKS
+    out = {"unprofiled_median_ms": float(np.median(walls[3:])),
+           "profiled_wall_ms": wall, "device_ms": device,
+           "busy_share": device / wall,
+           "launches_per_round": launches / PROFILE_CLICKS,
+           "device_ms_by_group": dict(sorted(groups.items(),
+                                             key=lambda kv: -kv[1]))}
+    _log(f"  {name}: {json.dumps(out)} ({card})")
+    return out
+
+
+def profile_paths(dev, card: str):
+    """ViT-B@448 bf16: where a click round's device time goes, per path:
+    the click path and the four prompt variants one session at a time,
+    and batched click sessions at B = 8 and 16 (per round of B clicks)."""
+    import torch
+    from pvpuformer_tpu_torch.inference.batched import resolve_batched_cfg
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
-                                                         PredictorConfig)
+                                                         PredictorConfig,
+                                                         batched_click_step,
+                                                         init_session,
+                                                         stack_states)
     from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
 
     mcfg = vpu_base_config(dtype=torch.bfloat16)
@@ -1275,36 +1703,19 @@ def profile_paths(dev, card: str):
             model=mcfg, target_size=(448, 448), with_flip=True,
             prompt_mode=mode, as_multi_prompts=multi), device=dev)
         pred.set_input(image, gt)
-        walls = []
-        for _ in range(3 + PROFILE_CLICKS):     # 3 warm-up clicks
-            t = time.perf_counter()
-            pred.next_click()
-            walls.append((time.perf_counter() - t) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for _ in range(PROFILE_CLICKS):
-                pred.next_click()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3 / PROFILE_CLICKS
-        groups, launches, device = {}, 0, 0.0
-        for e in prof.key_averages():
-            us = e.self_device_time_total
-            if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
-                continue
-            g = next((grp for grp, key in KERNEL_GROUPS if key in e.key),
-                     "other elementwise / reductions")
-            groups[g] = groups.get(g, 0.0) + us / 1e3 / PROFILE_CLICKS
-            launches += e.count
-            device += us / 1e3 / PROFILE_CLICKS
-        out[name] = {
-            "unprofiled_median_ms": float(np.median(walls[3:])),
-            "profiled_wall_ms": wall, "device_ms": device,
-            "busy_share": device / wall,
-            "launches_per_click": launches / PROFILE_CLICKS,
-            "device_ms_by_group": dict(sorted(groups.items(),
-                                              key=lambda kv: -kv[1]))}
-        _log(f"  {name}: {json.dumps(out[name])} ({card})")
+        out[name] = _profile_rounds(pred.next_click, card, name)
+    bcfg = resolve_batched_cfg(PredictorConfig(
+        model=mcfg, target_size=(448, 448), with_flip=True))
+    for b in EVAL_BATCHES:
+        box = [stack_states([init_session(image, gt, mcfg.num_max_points,
+                                          (448, 448), dev)] * b)]
+
+        @torch.no_grad()
+        def step():
+            box[0], iou = batched_click_step(model, bcfg, box[0])
+            return iou.cpu()                        # the host read
+        out[f"batched B={b}"] = _profile_rounds(step, card,
+                                                f"batched B={b} (per round)")
     return out
 
 
@@ -1319,7 +1730,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/9] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/12] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -1330,31 +1741,42 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/9] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/12] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler")
         print(json.dumps({"profile": profile_paths(dev, smi), "card": smi}))
         return 0
 
-    _log("[3/9] kernels vs plain versions")
+    _log("[3/12] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/9] model parity, tiny config f32")
+    _log("[4/12] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/9] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/12] main path: ViT-B@448 bf16 click sessions")
     launches, model = phase_main(dev, smi)
-    _log("[6/9] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/12] prompt parity, tiny config f32, four prompt variants")
     phase_prompt_parity(dev)
-    _log("[7/9] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/12] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = phase_prompts(dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     torch.cuda.empty_cache()
-    _log("[8/9] training parity, tiny config f32")
+    _log("[8/12] training parity, tiny config f32")
     phase_train_parity(dev)
-    _log("[9/9] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/12] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = phase_train(dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
+    torch.cuda.empty_cache()
+    _log("[10/12] evaluation parity, tiny config f32: sequential and "
+         "batched, CUDA vs the CPU")
+    phase_eval_parity(dev)
+    _log("[11/12] batched evaluation: ViT-B@448 bf16, 21 objects x "
+         f"{EVAL_CLICKS} clicks, sequential and B = "
+         f"{' / '.join(map(str, EVAL_BATCHES))}")
+    phase_batched(dev, smi)
+    torch.cuda.empty_cache()
+    _log("[12/12] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    phase_presets(dev, smi)
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",

@@ -1,0 +1,99 @@
+"""Batched multi-session evaluation, the throughput mode
+(pvpuformer_tpu/inference/batched.py).
+
+B sessions of one canvas shape run as one batch: every click round is one
+`batched_click_step` over the stacked states (`predictor.stack_states`), so
+the oracle's EDT is one min-plus launch for all B sessions and the flip-TTA
+forward runs at batch 2B with the launches of one session. Sessions are
+grouped by canvas bucket; each group's last chunk is padded to the batch
+size with copies of its last session, whose results are dropped.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..models.vpu import VPUModel
+from ..nn import cast_params, resolve_device
+from .predictor import (PredictorConfig, SessionState, batched_click_step,
+                        init_session, stack_states)
+
+
+def batched_click_scan(model: VPUModel, cfg: PredictorConfig,
+                       states: SessionState, num_clicks: int):
+    """`num_clicks` rounds of a batch of sessions. Returns (final states,
+    ious (B, num_clicks))."""
+    ious = []
+    for _ in range(num_clicks):
+        states, iou = batched_click_step(model, cfg, states)
+        ious.append(iou)
+    return states, torch.stack(ious, 1)
+
+
+def resolve_batched_cfg(cfg: PredictorConfig) -> PredictorConfig:
+    """The batched mode's configuration: the unchunked EDT with the dense
+    pass-1 form (bit-identical to the single-session defaults,
+    tests/test_torch_ops.py)."""
+    return dataclasses.replace(cfg, edt_chunk=None, edt_rows="dense")
+
+
+class BatchedEvaluator:
+    """Evaluate a dataset B sessions at a time. The model is moved to
+    `device` (None: the card; device="cpu" for the CPU) and cast once to
+    the config's compute dtype, in place, as `Predictor` does."""
+
+    def __init__(self, model: VPUModel, cfg: PredictorConfig,
+                 batch_size: int = 8, device=None):
+        self.device = resolve_device(device)
+        self.model = cast_params(model.to(self.device), cfg.model.dtype)
+        self.cfg = resolve_batched_cfg(cfg)
+        self.batch_size = batch_size
+
+    def _canvas(self, h: int, w: int) -> Tuple[int, int]:
+        b = self.cfg.canvas_bucket
+        return (-(-h // b) * b, -(-w // b) * b)
+
+    @torch.no_grad()
+    def evaluate(self, dataset, max_clicks: int = 20,
+                 max_iou_thr: float = 0.95, min_clicks: int = 1
+                 ) -> Tuple[List[np.ndarray], float, Dict[str, float]]:
+        """Returns (per-object IoU curves in dataset order, cut at the first
+        threshold crossing as `evaluate_sample` cuts them, elapsed seconds,
+        stats {objects_per_sec, clicks_per_sec})."""
+        n = self.cfg.model.num_max_points
+        groups: Dict[Tuple[int, int], List[Tuple[int, SessionState]]] = {}
+        order = 0
+        for index in range(len(dataset)):
+            sample = dataset.get_sample(index)
+            canvas = self._canvas(*sample.image.shape[:2])
+            for obj_id in sample.objects_ids:
+                st = init_session(sample.image, sample.gt_mask(obj_id), n,
+                                  canvas, self.device)
+                groups.setdefault(canvas, []).append((order, st))
+                order += 1
+
+        curves: List = [None] * order
+        start = time.time()
+        total_clicks = 0
+        for items in groups.values():
+            for lo in range(0, len(items), self.batch_size):
+                chunk = items[lo:lo + self.batch_size]
+                pad = self.batch_size - len(chunk)
+                states = stack_states([st for _, st in chunk]
+                                      + [chunk[-1][1]] * pad)
+                _, ious = batched_click_scan(self.model, self.cfg, states,
+                                             max_clicks)
+                ious = ious.cpu().numpy()
+                for (idx, _), curve in zip(chunk, ious):
+                    over = np.nonzero(curve[min_clicks - 1:] >= max_iou_thr)[0]
+                    k = (over[0] + min_clicks) if len(over) else max_clicks
+                    curves[idx] = curve[:k].astype(np.float32)
+                    total_clicks += k
+        elapsed = time.time() - start
+        stats = {"objects_per_sec": order / max(elapsed, 1e-9),
+                 "clicks_per_sec": total_clicks / max(elapsed, 1e-9)}
+        return curves, elapsed, stats

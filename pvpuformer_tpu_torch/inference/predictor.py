@@ -9,7 +9,11 @@ click runs:
   5. flip-average, sigmoid, paste-back into the canvas, and IoU.
 The ROI, click slots and counters stay on the device, so a click is one
 stream of launches with no host synchronisation; `click_scan` is a Python
-loop over clicks. `prompt_mode` 1 / 2 add box / scribble prompts
+loop over clicks. Every step is written over a leading session axis: a
+batch of B sessions (`stack_states`) runs one click round of all of them
+with the same launches as one session (`batched_click_step`; the flip-TTA
+model batch is [B originals; B flips]), and `click_step` is the batch of
+one. `prompt_mode` 1 / 2 add box / scribble prompts
 synthesised on the device from the ROI-cropped gt and error masks, in both
 `as_multi_prompts` protocols; their random draws come from a CPU
 `torch.Generator` (`_prompt_noise`), so a session draws the same noise on
@@ -67,6 +71,10 @@ class PredictorConfig:
 
 
 class SessionState(NamedTuple):
+    """One session; a batch of B sessions (`stack_states`) has the same
+    fields with B in place of the 1 of image / prev_probs / points and a
+    leading B on every other field (gt (B, Hc, Wc), roi (B, 4), counters
+    (B,), ...)."""
     image: torch.Tensor        # (1, Hc, Wc, 3) f32 in [0, 1]
     gt: torch.Tensor           # (Hc, Wc) f32: 1 obj, 0 bg, -1 ignore (pad 0)
     prev_probs: torch.Tensor   # (1, Hc, Wc, 1) f32
@@ -107,13 +115,38 @@ def init_session(image: np.ndarray, gt_mask: np.ndarray, num_max_points: int,
         img_h=torch.full((), h, **i32), img_w=torch.full((), w, **i32))
 
 
+_SESSION_AXIS = ("image", "prev_probs", "points")    # lead with the session
+
+
+def stack_states(states) -> SessionState:
+    """Sessions of one canvas shape -> one batch of sessions."""
+    return SessionState(*(
+        torch.cat(fs) if name in _SESSION_AXIS else torch.stack(fs)
+        for name, fs in zip(SessionState._fields, zip(*states))))
+
+
+def session(states: SessionState, i: int) -> SessionState:
+    """The i-th session of a batch (views)."""
+    return SessionState(*(
+        f[i:i + 1] if name in _SESSION_AXIS else f[i]
+        for name, f in zip(SessionState._fields, states)))
+
+
+def _as_batch(state: SessionState) -> SessionState:
+    """One session as a batch of one (views)."""
+    return SessionState(*(
+        f if name in _SESSION_AXIS else f[None]
+        for name, f in zip(SessionState._fields, state)))
+
+
 # ---------------------------------------------------------------------------
 # ROI machinery (zoom_in.py:156-200, utils/misc.py:36-79)
 # ---------------------------------------------------------------------------
 
 def _expand_clamp_bbox(bbox: torch.Tensor, ratio: float, min_size: int,
                        img_h, img_w) -> torch.Tensor:
-    rmin, rmax, cmin, cmax = bbox.float().unbind()
+    """(..., 4) boxes; img_h / img_w of the leading shape."""
+    rmin, rmax, cmin, cmax = bbox.float().unbind(-1)
     rc = 0.5 * (rmin + rmax)
     cc = 0.5 * (cmin + cmax)
     height = (ratio * (rmax - rmin + 1)).clamp_min(float(min_size))
@@ -122,9 +155,11 @@ def _expand_clamp_bbox(bbox: torch.Tensor, ratio: float, min_size: int,
     out = torch.stack([torch.round(rc - 0.5 * height),
                        torch.round(rc + 0.5 * height),
                        torch.round(cc - 0.5 * width),
-                       torch.round(cc + 0.5 * width)]).to(torch.int32)
-    return torch.stack([out[0].clamp_min(0), torch.minimum(out[1], img_h - 1),
-                        out[2].clamp_min(0), torch.minimum(out[3], img_w - 1)])
+                       torch.round(cc + 0.5 * width)], -1).to(torch.int32)
+    return torch.stack([out[..., 0].clamp_min(0),
+                        torch.minimum(out[..., 1], img_h - 1),
+                        out[..., 2].clamp_min(0),
+                        torch.minimum(out[..., 3], img_w - 1)], -1)
 
 
 def _segments_iou(a0, a1, b0, b1):
@@ -135,45 +170,55 @@ def _segments_iou(a0, a1, b0, b1):
 
 def _bbox_iou(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     b1, b2 = b1.float(), b2.float()
-    return (_segments_iou(b1[0], b1[1], b2[0], b2[1])
-            * _segments_iou(b1[2], b1[3], b2[2], b2[3]))
+    return (_segments_iou(b1[..., 0], b1[..., 1], b2[..., 0], b2[..., 1])
+            * _segments_iou(b1[..., 2], b1[..., 3], b2[..., 2], b2[..., 3]))
 
 
 def _clicks_inside_roi(points: torch.Tensor, n: int, roi: torch.Tensor):
-    """check_object_roi (zoom_in.py:192-200): all positive clicks inside."""
-    pos = points[0, :n]
-    y, x = pos[:, 0], pos[:, 1]
-    inside = (y >= roi[0]) & (y < roi[1]) & (x >= roi[2]) & (x < roi[3])
-    return torch.where(pos[:, 2] >= 0, inside, True).all()
+    """check_object_roi (zoom_in.py:192-200), per session: all positive
+    clicks of points (B, 2N, 3) inside roi (B, 4)."""
+    pos = points[:, :n]
+    y, x = pos[..., 0], pos[..., 1]
+    inside = ((y >= roi[:, 0:1]) & (y < roi[:, 1:2])
+              & (x >= roi[:, 2:3]) & (x < roi[:, 3:4]))
+    return torch.where(pos[..., 2] >= 0, inside, True).all(-1)
 
 
 def _update_roi(cfg: PredictorConfig, state: SessionState,
                 points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One ZoomIn.transform ROI decision (zoom_in.py:40-63)."""
-    n = points.shape[1] // 2
-    hc, wc = state.gt.shape
-    pred = state.prev_probs[0, :, :, 0] > cfg.zoom_prob_thresh
-    pred_any = pred.any() & (state.click_count > cfg.skip_clicks)
+    """One ZoomIn.transform ROI decision (zoom_in.py:40-63) per session of
+    a batch (roi (B, 4)), or of one session (roi (4,))."""
+    if state.roi.dim() == 1:
+        roi, has_roi = _update_roi(cfg, _as_batch(state), points)
+        return roi[0], has_roi[0]
+    b, twon = points.shape[:2]
+    n = twon // 2
+    hc, wc = state.gt.shape[-2:]
+    pred = state.prev_probs[..., 0] > cfg.zoom_prob_thresh
+    pred_any = pred.flatten(1).any(1) & (state.click_count > cfg.skip_clicks)
 
-    # pred mask with the valid positive clicks stamped in; invalid clicks go
-    # to a spare slot past the end, which is then dropped (mode="drop")
-    pos = points[0, :n]
-    yy = pos[:, 0].to(torch.int32).clamp(0, hc - 1)
-    xx = pos[:, 1].to(torch.int32).clamp(0, wc - 1)
-    flat = torch.where(pos[:, 2] >= 0, yy * wc + xx, hc * wc).long()
+    # pred masks with the valid positive clicks stamped in (each session at
+    # its own offset); invalid clicks go to a spare slot past the end, which
+    # is then dropped (mode="drop")
+    pos = points[:, :n]
+    yy = pos[..., 0].to(torch.int32).clamp(0, hc - 1)
+    xx = pos[..., 1].to(torch.int32).clamp(0, wc - 1)
+    sess = torch.arange(b, device=pred.device)[:, None]
+    flat = torch.where(pos[..., 2] >= 0, (sess * hc + yy) * wc + xx,
+                       b * hc * wc)
     stamped = torch.cat([pred.reshape(-1), pred.new_zeros(1)])
-    stamped = stamped.index_fill(0, flat, True)[:-1].reshape(hc, wc)
+    stamped = stamped.index_fill(0, flat.reshape(-1), True)[:-1]
 
-    obj_roi = _expand_clamp_bbox(torch.stack(_bbox(stamped)),
-                                 cfg.expansion_ratio, cfg.min_crop_size,
-                                 state.img_h, state.img_w)
-    zero = torch.zeros((), dtype=torch.int32, device=pred.device)
-    full_roi = torch.stack([zero, state.img_h - 1, zero, state.img_w - 1])
-    current = torch.where(pred_any, obj_roi, full_roi)
+    obj_roi = _expand_clamp_bbox(
+        torch.stack(_bbox(stamped.reshape(b, hc, wc)), -1),
+        cfg.expansion_ratio, cfg.min_crop_size, state.img_h, state.img_w)
+    zero = torch.zeros_like(state.img_h)
+    full_roi = torch.stack([zero, state.img_h - 1, zero, state.img_w - 1], -1)
+    current = torch.where(pred_any[:, None], obj_roi, full_roi)
     update = ((~state.has_roi) | (~_clicks_inside_roi(points, n, state.roi))
               | (_bbox_iou(current, state.roi) < cfg.recompute_thresh_iou))
-    roi = torch.where(update, current, state.roi)
-    return roi, torch.ones((), dtype=torch.bool, device=pred.device)
+    roi = torch.where(update[:, None], current, state.roi)
+    return roi, torch.ones_like(state.has_roi)
 
 
 # ---------------------------------------------------------------------------
@@ -436,10 +481,11 @@ def _rewrite_points_scribble(net_points: torch.Tensor, gtb: torch.Tensor,
 
 def _transform_points(points: torch.Tensor, roi: torch.Tensor,
                       crop_hw: Tuple[int, int], with_flip: bool) -> torch.Tensor:
-    """Canvas clicks -> zoomed coords (zoom_in.py:141-153), plus the flipped
-    duplicate batch (flip.py:9-21). Invalid slots stay (-1, -1, -1)."""
+    """Canvas clicks (B, 2N, 3) -> zoomed coords in each session's roi
+    (B, 4) (zoom_in.py:141-153), plus the flipped duplicates after them
+    (flip.py:9-21): [B originals; B flips]. Invalid slots stay (-1, -1, -1)."""
     ch, cw = crop_hw
-    rmin, rmax, cmin, cmax = roi.unbind()
+    rmin, rmax, cmin, cmax = (v[:, None] for v in roi.unbind(-1))
     y, x, order = points.unbind(-1)
     valid = order >= 0
     ny = ch * (y - rmin) / (rmax - rmin + 1).float()
@@ -457,17 +503,18 @@ def _prompt_inputs(cfg: PredictorConfig, state: SessionState,
                    crop: torch.Tensor, pts: torch.Tensor, roi: torch.Tensor,
                    noise: Dict[str, torch.Tensor]):
     """Box / scribble prompts from the ROI-cropped gt and error masks
-    (predictor.py:482-526). Returns (points, boxes, scribbles, ppue_points,
-    prompt_type) for the forward."""
+    (predictor.py:482-526), for a batch of ONE session (the flip pair).
+    Returns (points, boxes, scribbles, ppue_points, prompt_type) for the
+    forward."""
     th, tw = cfg.target_size
-    gtc = roi_crop_resize(state.gt[None, :, :, None], roi, th, tw)
+    gtc = roi_crop_resize(state.gt[..., None], roi, th, tw)
     if cfg.with_flip:
         gtc = torch.cat([gtc, gtc.flip(2)], 0)
     gtf = gtc[..., 0]
     gtb = gtf > 0.5
-    first = state.click_count <= 1              # eval loop's click_indx == 0
+    first = state.click_count[0] <= 1           # eval loop's click_indx == 0
     det = cfg.deterministic_prompts
-    nmax = torch.maximum(state.num_pos, state.num_neg)
+    nmax = torch.maximum(state.num_pos[0], state.num_neg[0])
     if cfg.net_clicks_limit is not None:
         nmax = nmax.clamp_max(cfg.net_clicks_limit)
     n_dyn = nmax.clamp_min(1)                   # base.py:199-202
@@ -500,13 +547,15 @@ def _prompt_inputs(cfg: PredictorConfig, state: SessionState,
 def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
                    points: torch.Tensor, prev_probs: torch.Tensor,
                    noise: Optional[Dict[str, torch.Tensor]] = None):
-    """ROI update + crop + net forward + paste-back, using `prev_probs`.
-    `noise`: the click's prompt draws (prompt_mode 1 / 2)."""
+    """ROI update + crop + net forward + paste-back of a batch of sessions,
+    using `prev_probs`. `noise`: the click's prompt draws (prompt_mode 1 / 2,
+    one session)."""
     st = state._replace(prev_probs=prev_probs)
     roi, has_roi = _update_roi(cfg, st, points)
     th, tw = cfg.target_size
+    b = points.shape[0]
     net_in = torch.cat([state.image, prev_probs], -1)
-    crop = roi_crop_resize(net_in, roi, th, tw)                 # (1, th, tw, 4)
+    crop = roi_crop_resize(net_in, roi, th, tw)                 # (B, th, tw, 4)
     if cfg.with_flip:
         crop = torch.cat([crop, crop.flip(2)], 0)
     net_points = points
@@ -522,67 +571,91 @@ def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     logits = vpu_forward(model, cfg.model, crop, pts, boxes, scribbles,
                          prompt_type, ppue_points)["instances"]
     if cfg.with_flip:
-        logits = 0.5 * (logits[:1] + logits[1:].flip(2))
+        logits = 0.5 * (logits[:b] + logits[b:].flip(2))
     probs = torch.sigmoid(logits.float())
-    hc, wc = state.gt.shape
+    hc, wc = state.gt.shape[-2:]
     return roi_paste_back(probs, roi, hc, wc), roi, has_roi
 
 
-def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState,
-               gen: Optional[torch.Generator] = None):
-    """One full interactive round. Returns (new_state, iou). `gen` (a CPU
-    generator) supplies the prompt draws of prompt_mode 1 / 2, once per
-    click (every cascade round reuses them, as JAX's per-click key does);
-    None draws from a fresh generator seeded NOISE_SEED."""
-    n = state.points.shape[1] // 2
-    hc, wc = state.gt.shape
+def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
+                gen: Optional[torch.Generator]):
+    """One interactive round of every session of a batch: (new states,
+    ious (B,)). One min-plus launch for the B oracle clicks and one model
+    forward at batch 2B (B without flip)."""
+    b, twon = states.points.shape[:2]
+    n = twon // 2
+    hc, wc = states.gt.shape[-2:]
+    sess = torch.arange(b, device=states.gt.device)
 
     # --- 1. oracle next click (clicker.py:21-69) ---
-    pred = state.prev_probs[0, :, :, 0] > cfg.prob_thresh
-    gt_pos = state.gt == 1
-    not_ignore = state.gt != -1
+    pred = states.prev_probs[..., 0] > cfg.prob_thresh
+    gt_pos = states.gt == 1
+    not_ignore = states.gt != -1
     fn = gt_pos & ~pred & not_ignore
     fp = ~gt_pos & pred & not_ignore
     is_pos, cy, cx, _ = next_click_from_error(
-        fn, fp, state.not_clicked, chunk=cfg.edt_chunk, rows=cfg.edt_rows)
-    row = torch.stack([cy.float(), cx.float(), state.click_count.float()])
-    slot = torch.where(is_pos, state.num_pos.clamp_max(n - 1),
-                       n + state.num_neg.clamp_max(n - 1))
-    points = state.points.clone()
-    points[0].index_copy_(0, slot.long().view(1), row.view(1, 3))
-    not_clicked = state.not_clicked.reshape(-1).index_fill(
-        0, (cy * wc + cx).long().view(1), False).reshape(hc, wc)
-    click_count = state.click_count + 1
-    st = state._replace(points=points, not_clicked=not_clicked,
-                        num_pos=state.num_pos + is_pos.int(),
-                        num_neg=state.num_neg + (~is_pos).int(),
-                        click_count=click_count)
+        fn, fp, states.not_clicked, chunk=cfg.edt_chunk, rows=cfg.edt_rows)
+    row = torch.stack([cy.float(), cx.float(), states.click_count.float()], -1)
+    slot = torch.where(is_pos, states.num_pos.clamp_max(n - 1),
+                       n + states.num_neg.clamp_max(n - 1))
+    points = states.points.reshape(b * twon, 3).index_copy(
+        0, sess * twon + slot, row).reshape(b, twon, 3)
+    not_clicked = states.not_clicked.reshape(-1).index_fill(
+        0, (sess * hc + cy) * wc + cx, False).reshape(b, hc, wc)
+    click_count = states.click_count + 1
+    st = states._replace(points=points, not_clicked=not_clicked,
+                         num_pos=states.num_pos + is_pos.int(),
+                         num_neg=states.num_neg + (~is_pos).int(),
+                         click_count=click_count)
 
     # --- 2. forward, with the optional CFR cascade (base.py:59-72) ---
     noise = None
     if cfg.prompt_mode != 0:
         noise = _prompt_noise(cfg, gen if gen is not None else
                               torch.Generator().manual_seed(NOISE_SEED),
-                              state.image.device)
+                              states.image.device)
     probs, roi, has_roi = _forward_round(model, cfg, st, points, st.prev_probs,
                                          noise)
     if cfg.cascade_step > 1:
         active = click_count <= cfg.cascade_clicks
         for _ in range(cfg.cascade_step - 1):
-            nxt = torch.where(active, _forward_round(model, cfg, st, points,
-                                                     probs, noise)[0], probs)
+            nxt = torch.where(active[:, None, None, None],
+                              _forward_round(model, cfg, st, points, probs,
+                                             noise)[0], probs)
             if cfg.cascade_adaptive:
                 diff = ((nxt > cfg.prob_thresh)
-                        != (probs > cfg.prob_thresh)).sum()
+                        != (probs > cfg.prob_thresh)).flatten(1).sum(1)
                 active = active & (diff > 20)
             probs = nxt
     st = st._replace(prev_probs=probs, roi=roi, has_roi=has_roi)
 
     # --- 3. IoU (inference/utils.py:80-87) ---
-    pm = probs[0, :, :, 0] > cfg.prob_thresh
-    inter = (pm & gt_pos & not_ignore).sum()
-    union = ((pm | gt_pos) & not_ignore).sum()
+    pm = probs[..., 0] > cfg.prob_thresh
+    inter = (pm & gt_pos & not_ignore).flatten(1).sum(1)
+    union = ((pm | gt_pos) & not_ignore).flatten(1).sum(1)
     return st, inter.float() / union.float().clamp_min(1.0)
+
+
+def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState,
+               gen: Optional[torch.Generator] = None):
+    """One full interactive round of one session. Returns (new_state, iou).
+    `gen` (a CPU generator) supplies the prompt draws of prompt_mode 1 / 2,
+    once per click (every cascade round reuses them, as JAX's per-click key
+    does); None draws from a fresh generator seeded NOISE_SEED."""
+    st, iou = _click_step(model, cfg, _as_batch(state), gen)
+    return session(st, 0), iou[0]
+
+
+def batched_click_step(model: VPUModel, cfg: PredictorConfig,
+                       states: SessionState):
+    """One round of every session of a batch (`stack_states`): (new states,
+    ious (B,)), each session's the same as its own `click_step`'s. Clicks
+    only (prompt_mode 0)."""
+    if cfg.prompt_mode != 0:
+        raise NotImplementedError("batched sessions run prompt_mode 0 "
+                                  "(clicks) only; box / scribble sessions "
+                                  "run one at a time (click_step)")
+    return _click_step(model, cfg, states, None)
 
 
 def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,

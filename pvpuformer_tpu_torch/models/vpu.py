@@ -26,6 +26,7 @@ from ..ops.rasterize import draw_box_into_coords, draw_scribble_into_coords
 from ..ops.resize import bilinear_resize
 from .fpn import Neck, NeckConfig, neck_forward
 from .seg_head import Head, HeadConfig, head_forward
+from .two_way import TwoWayConfig
 from .vit import ViT, ViTConfig, vit_backbone_forward
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -60,18 +61,39 @@ class VPUConfig:
         return dataclasses.replace(self, **kw)
 
 
+def _vpu_config(crop, upsample, dtype, patch: int, dim: int, depth: int,
+                heads: int) -> VPUConfig:
+    channels = {"x1": 256, "x2": 128, "x4": 64}[upsample]
+    return VPUConfig(
+        backbone=ViTConfig(img_size=crop, patch_size=(patch, patch),
+                           in_chans=3, embed_dim=dim, depth=depth,
+                           num_heads=heads),
+        neck=NeckConfig(in_dim=dim, out_dims=(128, 256, 512, 1024),
+                        img_size=crop, two_way=TwoWayConfig(embedding_dim=dim)),
+        head=HeadConfig(in_channels=(128, 256, 512, 1024), channels=channels,
+                        upsample=upsample, d_model=dim),
+        dtype=dtype)
+
+
 def vpu_base_config(crop: Tuple[int, int] = (448, 448), upsample: str = "x1",
                     dtype: Any = torch.float32) -> VPUConfig:
     """The shipped ViT-B training config (vpu_base448_cocolvis.py:11-61)."""
-    channels = {"x1": 256, "x2": 128, "x4": 64}[upsample]
-    return VPUConfig(
-        backbone=ViTConfig(img_size=crop, patch_size=(16, 16), in_chans=3,
-                           embed_dim=768, depth=12, num_heads=12),
-        neck=NeckConfig(in_dim=768, out_dims=(128, 256, 512, 1024),
-                        img_size=crop),
-        head=HeadConfig(in_channels=(128, 256, 512, 1024), channels=channels,
-                        upsample=upsample),
-        dtype=dtype)
+    return _vpu_config(crop, upsample, dtype, 16, 768, 12, 12)
+
+
+def vpu_large_config(crop: Tuple[int, int] = (448, 448), upsample: str = "x1",
+                     dtype: Any = torch.float32) -> VPUConfig:
+    """ViT-L (pvpuformer_tpu/models/vpu.py:90-103): D 1024, 24 blocks, 16
+    heads, 16x16 patches."""
+    return _vpu_config(crop, upsample, dtype, 16, 1024, 24, 16)
+
+
+def vpu_huge_config(crop: Tuple[int, int] = (448, 448), upsample: str = "x1",
+                    dtype: Any = torch.float32) -> VPUConfig:
+    """ViT-H (pvpuformer_tpu/models/vpu.py:106-120): D 1280, 32 blocks, 16
+    heads (head dim 80), 14x14 patches: a 448 crop is a 32x32 token grid in
+    2x2 windows of 16x16 tokens."""
+    return _vpu_config(crop, upsample, dtype, 14, 1280, 32, 16)
 
 
 class VPUModel(tnn.Module):

@@ -89,16 +89,19 @@ def next_click_from_error(fn_mask: torch.Tensor, fp_mask: torch.Tensor,
                           not_clicked: torch.Tensor,
                           chunk: Optional[int] = 32, rows: str = "scan"):
     """Oracle next click: centre of the larger of the FN / FP error regions
-    (clicker.py:29-56). Returns (is_positive, y, x, max_sqdist) as 0-d
-    tensors; ties break to the first maximum in row-major order."""
+    (clicker.py:29-56), for one session's (H, W) masks or per session of a
+    batch of (B, H, W) masks, all with ONE min-plus launch. Returns
+    (is_positive, y, x, max_sqdist), each of the masks' leading shape (0-d
+    for one session); per session, ties break to the first maximum in
+    row-major order."""
     d_fn, d_fp = squared_edt_pair(fn_mask, fp_mask, chunk=chunk, rows=rows)
     d_fn = d_fn * not_clicked
     d_fp = d_fp * not_clicked
-    fn_max = d_fn.max()
-    fp_max = d_fp.max()
+    fn_max = d_fn.amax((-2, -1))
+    fp_max = d_fp.amax((-2, -1))
     is_positive = fn_max > fp_max
-    d = torch.where(is_positive, d_fn, d_fp)
-    flat_idx = torch.argmax(d.reshape(-1))           # first max, row-major
-    w = fn_mask.shape[1]
+    d = torch.where(is_positive[..., None, None], d_fn, d_fp)
+    flat_idx = torch.argmax(d.flatten(-2), -1)       # first max, row-major
+    w = fn_mask.shape[-1]
     return (is_positive, (flat_idx // w).to(torch.int32),
             (flat_idx % w).to(torch.int32), torch.maximum(fn_max, fp_max))

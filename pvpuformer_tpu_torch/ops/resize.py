@@ -48,9 +48,10 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int,
 
 
 def _axis_sample(length_src: int, n_out: int, lo, hi):
-    """align_corners=True sample positions of the span [lo, hi] (inclusive)."""
+    """align_corners=True sample positions of the spans [lo, hi] (inclusive,
+    (B,) each): (B, n_out) indices and weights."""
     i = torch.arange(n_out, dtype=torch.float32, device=lo.device)
-    x = lo.float() + i * (hi - lo).float() / float(n_out - 1)
+    x = lo.float()[:, None] + i * (hi - lo).float()[:, None] / float(n_out - 1)
     x = x.clamp(0.0, float(length_src - 1))
     x0 = x.floor().long()
     x1 = (x0 + 1).clamp_max(length_src - 1)
@@ -58,39 +59,56 @@ def _axis_sample(length_src: int, n_out: int, lo, hi):
 
 
 def _gather_2d(f: torch.Tensor, y0, y1, wy, x0, x1, wx) -> torch.Tensor:
-    rows = (f.index_select(1, y0) * (1.0 - wy)[None, :, None, None]
-            + f.index_select(1, y1) * wy[None, :, None, None])
-    return (rows.index_select(2, x0) * (1.0 - wx)[None, None, :, None]
-            + rows.index_select(2, x1) * wx[None, None, :, None])
+    """f (B, H, W, C) sampled bilinearly at each item's rows (B, h) and
+    columns (B, w)."""
+    b, _, _, c = f.shape
+    item = torch.arange(b, device=f.device)[:, None]
+    rows = (f[item, y0] * (1.0 - wy)[..., None, None]
+            + f[item, y1] * wy[..., None, None])                  # (B, h, W, C)
+
+    def cols(x):
+        return rows.gather(2, x[:, None, :, None].expand(
+            b, rows.shape[1], x.shape[1], c))
+    return (cols(x0) * (1.0 - wx)[:, None, :, None]
+            + cols(x1) * wx[:, None, :, None])
+
+
+def _rois(roi: torch.Tensor, b: int) -> torch.Tensor:
+    """One roi (4,) for the whole batch, or one per item (B, 4) -> (B, 4)."""
+    return roi.reshape(-1, 4).expand(b, 4)
 
 
 def roi_crop_resize(img: torch.Tensor, roi: torch.Tensor, out_h: int,
                     out_w: int) -> torch.Tensor:
     """Crop img (B, H, W, C) to roi = (rmin, rmax, cmin, cmax) (inclusive
-    int tensor) and resize to (out_h, out_w) with align_corners=True."""
+    int tensor, (4,) for every item or (B, 4) one per item) and resize to
+    (out_h, out_w) with align_corners=True."""
     b, h, w, c = img.shape
-    y0, y1, wy = _axis_sample(h, out_h, roi[0], roi[1])
-    x0, x1, wx = _axis_sample(w, out_w, roi[2], roi[3])
+    rmin, rmax, cmin, cmax = _rois(roi, b).unbind(-1)
+    y0, y1, wy = _axis_sample(h, out_h, rmin, rmax)
+    x0, x1, wx = _axis_sample(w, out_w, cmin, cmax)
     return _gather_2d(img.float(), y0, y1, wy, x0, x1, wx).to(img.dtype)
 
 
 def roi_paste_back(probs: torch.Tensor, roi: torch.Tensor, canvas_h: int,
                    canvas_w: int) -> torch.Tensor:
     """Resize probs (B, h, w, C) to the ROI span (align_corners=True) and
-    paste it into a zero (canvas_h, canvas_w) canvas, as one gather."""
+    paste it into a zero (canvas_h, canvas_w) canvas, as one gather; roi
+    (4,) for every item or (B, 4) one per item."""
     b, h, w, c = probs.shape
     dev = probs.device
-    rmin, rmax, cmin, cmax = roi.float().unbind()
+    rmin, rmax, cmin, cmax = (v[:, None] for v in
+                              _rois(roi, b).float().unbind(-1))
     r = torch.arange(canvas_h, dtype=torch.float32, device=dev)
     cc = torch.arange(canvas_w, dtype=torch.float32, device=dev)
     rh = rmax - rmin
     rw = cmax - cmin
-    sy = (r - rmin) * (h - 1) / rh.clamp_min(1.0)
-    sx = (cc - cmin) * (w - 1) / rw.clamp_min(1.0)
+    sy = (r - rmin) * (h - 1) / rh.clamp_min(1.0)                 # (B, Hc)
+    sx = (cc - cmin) * (w - 1) / rw.clamp_min(1.0)                # (B, Wc)
     sy = torch.where(rh < 1.0, 0.0, sy)
     sx = torch.where(rw < 1.0, 0.0, sx)
-    inside = (((r >= rmin) & (r <= rmax))[:, None]
-              & ((cc >= cmin) & (cc <= cmax))[None, :])
+    inside = (((r >= rmin) & (r <= rmax))[:, :, None]
+              & ((cc >= cmin) & (cc <= cmax))[:, None, :])
     sy = sy.clamp(0.0, h - 1)
     sx = sx.clamp(0.0, w - 1)
     y0 = sy.floor().long()
@@ -98,5 +116,5 @@ def roi_paste_back(probs: torch.Tensor, roi: torch.Tensor, canvas_h: int,
     out = _gather_2d(probs.float(), y0, (y0 + 1).clamp_max(h - 1),
                      sy - y0.float(), x0, (x0 + 1).clamp_max(w - 1),
                      sx - x0.float())
-    out = torch.where(inside[None, :, :, None], out, 0.0)
+    out = torch.where(inside[..., None], out, 0.0)
     return out.to(probs.dtype)

@@ -22,6 +22,11 @@ import pvpuformer_tpu_torch.engine.losses, pvpuformer_tpu_torch.engine.metrics
 import pvpuformer_tpu_torch.engine.optimizer
 import pvpuformer_tpu_torch.engine.train_step
 import pvpuformer_tpu_torch.engine.trainer
+import pvpuformer_tpu_torch.inference.batched
+import pvpuformer_tpu_torch.inference.clicker
+import pvpuformer_tpu_torch.inference.datasets
+import pvpuformer_tpu_torch.inference.evaluation
+import pvpuformer_tpu_torch.utils.exp, pvpuformer_tpu_torch.evaluate
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton'))
 assert not bad, bad
