@@ -59,7 +59,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      loss, every gradient and the updated parameters within tolerance;
   9. the training path: ViT-B@448 bf16, the shipped recipe (batch 32, 24
      points, iterloss weights (1, 2, 3), Adam 5e-5), 3 `Trainer` steps with
-     num_iters 1, 2 and 3 and at least one box round: losses finite,
+     num_iters 1, 2 and 3 and at least one box round (an out-of-memory
+     error fails the phase; no smaller batch is tried): losses finite,
      parameters changed, every kernel's launches (forward and backward)
      equal to what the drawn prompt types predict; ms per step, peak
      memory, the device-busy share of one more profiled step, and the host
@@ -81,6 +82,20 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      pass-1 forms' times at B = 16's masks;
  12. presets: one 3-click bf16 session each of ViT-L@448 and ViT-H@448,
      random weights, launch counts equal to the wrapper calls;
+ 13. the training entry point: (a) `python -m pvpuformer_tpu_torch.train`
+     on the tiny recipe (--debug --batch-size 8) and `python -m
+     pvpuformer_tpu_torch.evaluate` on its checkpoint, each a process on
+     the card in a temporary directory: exit codes 0, the experiment
+     layout, checkpoint and log written, the NoC table printed; the tiny
+     recipe's first 2 steps on CUDA vs the CPU from the same Loader batches
+     and draws, losses within 1e-4; (b) the shipped recipe's own Trainer
+     (`vpu_base448_cocolvis.build_trainer`) on the synthetic raw source at
+     480 x 640, one epoch of 4 steps through `Loader` with 4 thread
+     workers, one panel dumped and checkpoints written: the loader's
+     records/s alone (threads and processes), ms per step, the share of
+     each step's wall time spent waiting for its batch (a second epoch on
+     process workers where it exceeds 5%), peak memory, and every kernel's
+     launches equal to what the drawn num_iters and prompt types predict;
 then one JSON line of kernel summaries, the card's name and power limit,
 and, last, {"ok": true, "device": ...}.
 
@@ -93,14 +108,16 @@ round by kernel group, launches per round, the device busy share under
 the profiler, and the host-clock median of unprofiled rounds beside it.
 
 No phase's depth was cut for time: the whole script, the build included,
-takes about 110 s on an NVIDIA H100 80GB HBM3 at 700 W, of its 1200 s
-limit.
+took about 110 s on an NVIDIA H100 80GB HBM3 at 700 W before phase 13, of
+its 1200 s limit.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1105,22 +1122,25 @@ def phase_train_parity(dev):
 TRAIN_BATCH = 32          # vpu_base448_cocolvis.py's batch size
 
 
-class _Repeat:
-    """A loader that yields one batch `n` times per epoch."""
+class _Replay:
+    """A loader that yields the same batches, held in memory, every epoch."""
 
-    def __init__(self, batch, n):
-        self.batch, self.n = batch, n
+    def __init__(self, batches):
+        self.batches = list(batches)
 
     def set_epoch(self, epoch):
         pass
 
+    def __len__(self):
+        return len(self.batches)
+
     def __iter__(self):
-        return iter([self.batch] * self.n)
+        return iter(self.batches)
 
 
 def phase_train(dev, card: str):
-    """Phase 9: the full-width training path through `Trainer`. Falls back
-    to a smaller batch only on an out-of-memory error, and says so."""
+    """Phase 9: the full-width training path through `Trainer`, at the
+    recipe's batch of 32 (an out-of-memory error fails the phase)."""
     import random
     import torch
     from pvpuformer_tpu_torch.engine.train_step import TrainConfig, _train_noise
@@ -1141,13 +1161,7 @@ def phase_train(dev, card: str):
     seed = next(s for s in range(1 << 16) if num_iters(s) == [1, 2, 3]
                 and any(1 in types(s, i, i + 1) for i in range(3)))
     plan = [types(seed, i, i + 1) for i in range(3)]
-    for b in (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4):
-        try:
-            return _train_run(dev, card, cfg, seed, plan, b)
-        except torch.OutOfMemoryError as e:
-            _log(f"  batch {b} does not fit: {str(e).splitlines()[0]}")
-            torch.cuda.empty_cache()
-    raise AssertionError("the training path fits no batch >= 8")
+    return _train_run(dev, card, cfg, seed, plan, TRAIN_BATCH)
 
 
 def _train_run(dev, card, cfg, seed, plan, b):
@@ -1165,7 +1179,7 @@ def _train_run(dev, card, cfg, seed, plan, b):
     tx = make_optimizer(model, "adam", lr=5e-5)
     hw = mcfg.backbone.img_size[0]
     batch = train_batch(b, hw, mcfg.num_max_points)
-    trainer = ttr.Trainer(model, cfg, tx, _Repeat(batch, 3), device=dev,
+    trainer = ttr.Trainer(model, cfg, tx, _Replay([batch] * 3), device=dev,
                           seed=seed, log_every=1000)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     step_ms, losses, iters = [], [], []
@@ -1719,6 +1733,289 @@ def profile_paths(dev, card: str):
     return out
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TINY_RECIPE = "pvpuformer_tpu_torch/recipes/iSegNet/vpu_tiny_synthetic.py"
+RECIPE_STEPS = 4          # phase 13b: one epoch of the shipped recipe
+RECIPE_HW = (480, 640)    # phase 13b: a COCO-sized raw image
+LOADER_WORKERS = 4        # train.py's default --workers
+WAIT_SHARE = 0.05         # phase 13b: the loader keeps ahead below this
+
+
+def _subprocess(args, cwd, what: str):
+    """`python -m <args>` from `cwd` with this checkout on the path: its
+    output, after a 0 exit code."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t
+    if out.returncode != 0:
+        raise AssertionError(f"{what} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, secs
+
+
+def phase_entry(dev):
+    """Phase 13a: `python -m pvpuformer_tpu_torch.train` on the tiny recipe
+    (--debug: one epoch of 4 steps at batch 8) and `python -m
+    pvpuformer_tpu_torch.evaluate` on its checkpoint, both on the card in
+    a temporary directory; then the tiny recipe's first 2 Trainer steps on
+    CUDA and on the CPU from the same Loader batches and draws, losses
+    within phase 8's 1e-4."""
+    import tempfile
+    from pathlib import Path
+    from pvpuformer_tpu_torch.engine import trainer as ttr
+    from pvpuformer_tpu_torch.recipes.iSegNet import vpu_tiny_synthetic
+    from pvpuformer_tpu_torch.utils.exp import EasyCfg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, secs = _subprocess(
+            ["pvpuformer_tpu_torch.train", os.path.join(ROOT, TINY_RECIPE),
+             "--debug", "--batch-size", "8"], tmp, "the tiny recipe")
+        exp = Path(tmp) / "experiments" / "iSegNet" / "vpu_tiny_synthetic" \
+            / "000"
+        ckpt = exp / "checkpoints" / "last_checkpoint.npz"
+        layout = sorted(str(q.relative_to(exp)) for q in exp.rglob("*"))
+        logs = list((exp / "logs").glob("train_*.log"))
+        ok = (ckpt.is_file() and (exp / "checkpoints" / "000.npz").is_file()
+              and (exp / "vpu_tiny_synthetic.py").is_file()
+              and (exp / "vis").is_dir() and len(logs) == 1
+              and "saved checkpoint" in logs[0].read_text())
+        _log(f"  python -m pvpuformer_tpu_torch.train {TINY_RECIPE} --debug "
+             f"--batch-size 8: rc 0 in {secs:.1f} s; experiment layout "
+             f"{layout}; last log line: "
+             f"{out.strip().splitlines()[-1] if out.strip() else '(none)'}")
+        if not ok:
+            raise AssertionError("the tiny recipe did not write the "
+                                 "experiment layout, checkpoint and log")
+        out, secs = _subprocess(
+            ["pvpuformer_tpu_torch.evaluate", "--checkpoint", str(ckpt),
+             "--datasets", "Synthetic", "--limit", "3", "--n-clicks", "5",
+             "--dtype", "float32", "--print-ious", "--logs-path",
+             os.path.join(tmp, "eval")], tmp,
+            "the evaluation CLI")
+        table = [ln for ln in out.splitlines()
+                 if ln.startswith("|") or ln.startswith("mIoU@k")]
+        _log(f"  python -m pvpuformer_tpu_torch.evaluate --checkpoint "
+             f"<its last_checkpoint.npz> --datasets Synthetic --limit 3 "
+             f"--n-clicks 5 --dtype float32 (the recipe's): rc 0 in "
+             f"{secs:.1f} s")
+        for ln in table:
+            _log(f"    {ln}")
+        if not any("NoC@90%" in ln for ln in table) or \
+                not any("| Synthetic |" in ln for ln in table):
+            raise AssertionError("the evaluation CLI printed no NoC table")
+
+    losses = {}
+    step = ttr.train_step
+    for where in ("cpu", dev):
+        cfg = EasyCfg(CHECKPOINTS_PATH=None, device=str(where), batch_size=8,
+                      workers=2)
+        trainer = vpu_tiny_synthetic.build_trainer(
+            cfg, vpu_tiny_synthetic.make_trainset())
+        trainer.train_loader = _Replay(
+            itertools.islice(trainer.train_loader, 2))   # epoch 0's first
+        seen = losses[str(where)] = []
+
+        def rec(*a, **kw):
+            out = step(*a, **kw)
+            seen.append(float(out[0]["loss"]))
+            return out
+
+        ttr.train_step = rec
+        try:
+            trainer.training(0)
+        finally:
+            ttr.train_step = step
+    lc, lg = losses["cpu"], losses[str(dev)]
+    err = max(abs(a - b) for a, b in zip(lc, lg))
+    _log(f"  tiny recipe's first 2 steps (Adam 1e-3, f32, batch 8) cuda vs "
+         f"cpu, the same Loader batches and draws: losses {lg} vs {lc}, max "
+         f"|dloss| {err:.2e} (tol 1e-4) {'ok' if err <= 1e-4 else 'FAIL'}")
+    if len(lc) != 2 or len(lg) != 2 or err > 1e-4:
+        raise AssertionError("the tiny recipe's CUDA and CPU steps disagree")
+
+
+class _TimedLoader:
+    """A loader whose epoch records the host seconds each batch was waited
+    for, and keeps the batches."""
+
+    def __init__(self, loader):
+        self.loader, self.waits, self.batches = loader, [], []
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t)
+            self.batches.append(batch)
+            yield batch
+
+
+def _recipe_epoch(trainer, loader, run):
+    """`run()` (an epoch of `trainer`) with its batches from `loader`:
+    (ms per step, batch wait ms per step, wall ms per step, num_iters,
+    seconds after the last step (the dump and the checkpoints), the
+    batches)."""
+    import torch
+    from pvpuformer_tpu_torch.engine import trainer as ttr
+    trainer.train_loader = timed = _TimedLoader(loader)
+    step = ttr.train_step
+    steps, ends, iters = [], [], []
+
+    def rec(*a, **kw):
+        t = time.perf_counter()
+        out = step(*a, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        steps.append((ends[-1] - t) * 1e3)
+        iters.append(kw["num_iters"])
+        return out
+
+    ttr.train_step = rec
+    try:
+        t0 = time.perf_counter()
+        run()
+        tail = time.perf_counter() - ends[-1]
+    finally:
+        ttr.train_step = step
+    walls = np.diff([t0] + ends) * 1e3
+    return (steps, [w * 1e3 for w in timed.waits], walls.tolist(), iters,
+            tail, timed.batches)
+
+
+def _ms(xs):
+    return [round(x, 1) for x in xs]
+
+
+def phase_recipe(dev, card: str):
+    """Phase 13b: the shipped recipe's own Trainer
+    (`vpu_base448_cocolvis.build_trainer`: ViT-B@448 bf16, batch 32, its
+    sampler, augmentations, TrainConfig and Adam 5e-5) over the synthetic
+    raw source at a COCO size (480 x 640), `trainer.run(1)`: one epoch of
+    RECIPE_STEPS steps through `Loader` with 4 thread workers, one panel
+    dumped and the checkpoints written to a temporary directory; then the
+    epoch's batches replayed from memory (the steps with no loader work
+    beside them) and, where the wait share exceeds WAIT_SHARE, the epoch
+    through process workers: loader records/s alone,
+    ms per step, the share of each step's wall time spent waiting for its
+    batch, peak memory, and each kernel's launches against what the drawn
+    num_iters and prompt types (and the dump's forward) predict."""
+    import random
+    import tempfile
+    from pathlib import Path
+    import torch
+    from pvpuformer_tpu_torch.data import Loader, SyntheticTrainDataset
+    from pvpuformer_tpu_torch.engine.train_step import _train_noise
+    from pvpuformer_tpu_torch.recipes.iSegNet import vpu_base448_cocolvis \
+        as recipe
+    from pvpuformer_tpu_torch.utils.exp import EasyCfg
+
+    sampler = recipe.points_sampler()
+    trainset = SyntheticTrainDataset(
+        n_samples=32, hw=RECIPE_HW, **{**recipe.train_kwargs(sampler),
+                                       "epoch_len": RECIPE_STEPS * TRAIN_BATCH})
+    valset = SyntheticTrainDataset(n_samples=8, hw=RECIPE_HW,
+                                   **recipe.val_kwargs(sampler))
+    # a warm-up batch: the records' lazy scipy imports and the allocator's
+    # first pages (a cold first pass read half the rate on a CPU host)
+    next(iter(Loader(trainset, TRAIN_BATCH, num_workers=LOADER_WORKERS)))
+    rates = {}
+    for worker_type in ("thread", "process"):
+        loader = Loader(trainset, TRAIN_BATCH, num_workers=LOADER_WORKERS,
+                        worker_type=worker_type)
+        t = time.perf_counter()
+        n = sum(len(b["image"]) for b in loader)
+        rates[worker_type] = n / (time.perf_counter() - t)
+    _log(f"  Loader alone, {LOADER_WORKERS} workers, batch {TRAIN_BATCH}, "
+         f"{RECIPE_STEPS * TRAIN_BATCH} records of {RECIPE_HW} raw images "
+         f"(train_augmentator to 448 x 448, 24-point sampler, 1000-sample "
+         f"scribbles): {rates['thread']:.1f} records/s with threads, "
+         f"{rates['process']:.1f} with processes (host, {card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = EasyCfg(CHECKPOINTS_PATH=Path(tmp) / "checkpoints",
+                      LOGS_PATH=Path(tmp) / "logs", device=str(dev),
+                      batch_size=TRAIN_BATCH, workers=LOADER_WORKERS,
+                      IMAGENET_PRETRAINED_MODELS={})
+        trainer = recipe.build_trainer(cfg, trainset, valset)
+        trainer.vis_dir = Path(tmp) / "vis"
+        trainer.image_dump_interval = RECIPE_STEPS
+        mcfg = trainer.cfg.model
+        depth = mcfg.backbone.depth
+        rng = random.Random(f"{trainer.seed}-0")
+        want_iters = [rng.randint(1, trainer.cfg.max_num_next_clicks)
+                      for _ in range(RECIPE_STEPS)]
+        plan = [_train_noise(trainer.cfg, torch.Generator().manual_seed(
+            (trainer.seed << 20) ^ i), 1, 1, 1, ni)["prompt_types"]
+            for i, ni in enumerate(want_iters)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        steps, waits, walls, iters, tail, batches = _recipe_epoch(
+            trainer, trainer.train_loader, lambda: trainer.run(1))
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckpts = sorted(q.name for q in cfg.CHECKPOINTS_PATH.iterdir())
+        panels = sorted(q.name for q in trainer.vis_dir.iterdir())
+        rounds = sum(len(tp) for tp in plan)
+        boxes = sum(tp.count(1) for tp in plan)
+        dumps = RECIPE_STEPS // trainer.image_dump_interval
+        want = {"fused_attention": depth * (rounds + dumps),
+                "fused_attention_bwd": depth * rounds,
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "fused_ln_mlp": depth * (rounds + dumps),
+                "fused_ln_mlp_bwd": depth * rounds,
+                "minplus_rows": sum(len(tp) - 1 for tp in plan),
+                "cc_labels": boxes, "component_max": boxes}
+        steady = slice(1, None)                 # the first includes warm-up
+        share = sum(waits[steady]) / sum(walls[steady])
+        _log(f"  recipe epoch, thread workers: num_iters {iters}, prompt "
+             f"types {plan}; ms per step {_ms(steps)}, wall ms per step "
+             f"{_ms(walls)}, batch wait ms {_ms(waits)}: wait share of steps "
+             f"2-{RECIPE_STEPS} {share:.3f} (keeps ahead below {WAIT_SHARE}); "
+             f"peak memory {peak_gb:.2f} GiB; panels {panels} and "
+             f"checkpoints {ckpts} written in {tail:.1f} s after the last "
+             f"step ({card})")
+        _log(f"  launches {counts} expected {want}")
+        if iters != want_iters or counts != want:
+            raise AssertionError("the recipe's kernels were launched a "
+                                 "different number of times than its "
+                                 "path calls them")
+        if len(panels) != dumps or "last_checkpoint.npz" not in ckpts:
+            raise AssertionError("the recipe wrote no panel or checkpoint")
+        trainer.image_dump_interval = 0
+        # the same epoch's batches again from memory (the same num_iters):
+        # the steps with no loader work beside them
+        r_steps, _, r_walls, r_iters, _, _ = _recipe_epoch(
+            trainer, _Replay(batches), lambda: trainer.training(0))
+        _log(f"  the same batches replayed from memory: num_iters {r_iters}; "
+             f"ms per step {_ms(r_steps)}, wall ms per step {_ms(r_walls)} "
+             f"({card})")
+        if share > WAIT_SHARE:
+            p_steps, p_waits, p_walls, p_iters, _, _ = _recipe_epoch(
+                trainer, Loader(trainset, TRAIN_BATCH,
+                                num_workers=LOADER_WORKERS,
+                                worker_type="process"),
+                lambda: trainer.training(0))
+            p_share = sum(p_waits[steady]) / sum(p_walls[steady])
+            _log(f"  the epoch again through process workers: num_iters "
+                 f"{p_iters}; ms per step {_ms(p_steps)}, wall ms per step "
+                 f"{_ms(p_walls)}, batch wait ms {_ms(p_waits)}: wait share "
+                 f"of steps 2-{RECIPE_STEPS} {p_share:.3f} (threads "
+                 f"{share:.3f}) ({card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1730,7 +2027,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/12] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/13] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -1741,42 +2038,48 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/12] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/13] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler")
         print(json.dumps({"profile": profile_paths(dev, smi), "card": smi}))
         return 0
 
-    _log("[3/12] kernels vs plain versions")
+    _log("[3/13] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/12] model parity, tiny config f32")
+    _log("[4/13] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/12] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/13] main path: ViT-B@448 bf16 click sessions")
     launches, model = phase_main(dev, smi)
-    _log("[6/12] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/13] prompt parity, tiny config f32, four prompt variants")
     phase_prompt_parity(dev)
-    _log("[7/12] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/13] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = phase_prompts(dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     torch.cuda.empty_cache()
-    _log("[8/12] training parity, tiny config f32")
+    _log("[8/13] training parity, tiny config f32")
     phase_train_parity(dev)
-    _log("[9/12] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/13] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = phase_train(dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/12] evaluation parity, tiny config f32: sequential and "
+    _log("[10/13] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
     phase_eval_parity(dev)
-    _log("[11/12] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _log("[11/13] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     phase_batched(dev, smi)
     torch.cuda.empty_cache()
-    _log("[12/12] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _log("[12/13] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     phase_presets(dev, smi)
+    torch.cuda.empty_cache()
+    _log("[13/13] the training entry point: the tiny recipe and the "
+         "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
+         "shipped recipe through the data pipeline")
+    phase_entry(dev)
+    phase_recipe(dev, smi)
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",

@@ -1,14 +1,20 @@
-"""The training losses of the iterloss path (pvpuformer_tpu/engine/losses.py).
+"""The training losses (pvpuformer_tpu/engine/losses.py, the reference's
+`isegm/model/losses.py`).
 
   * normalized_focal_loss = NormalizedFocalLossSigmoid, with the `with_aux`
     diagnostics and the normalizer detached (`detach_delimeter`);
+  * focal_loss            = FocalLoss;
+  * soft_iou_loss         = SoftIoU;
   * dice_loss             = DiceLoss, per-sample form;
-  * sigmoid_bce_loss      = SigmoidBinaryCrossEntropyLoss.
+  * sigmoid_bce_loss      = SigmoidBinaryCrossEntropyLoss;
+  * boundary_bce_loss     = BoundaryCrossEntropyLoss, its cv2 L1
+    distance-transform boundary as a 4-neighbour erosion test;
+  * error_count           = ErrorCount;
+  * cross_entropy_loss, accuracy: the mmseg multi-class pair.
 
-Predictions and labels are (B, H, W, C); every loss returns a per-sample (B,)
-vector in f32, like the JAX package (the train step means it). The rest of
-the JAX module (focal, soft IoU, boundary BCE, error count, CE, accuracy) is
-not ported yet.
+Predictions and labels are (B, H, W, C); the iterloss losses return a
+per-sample (B,) vector in f32, like the JAX package (the train step means
+it); boundary BCE, error count, CE and accuracy return scalars.
 """
 from __future__ import annotations
 
@@ -96,3 +102,98 @@ def dice_loss(pred_logits: torch.Tensor, target: torch.Tensor,
     else:
         d = 2.0 * a / ((p * p).sum(1) + (t * t).sum(1) + eps)
     return loss_weight * (1.0 - d)
+
+
+def focal_loss(pred_logits: torch.Tensor, label: torch.Tensor,
+               alpha: float = 0.25, gamma: float = 2.0, eps: float = 1e-9,
+               scale: float = 1.0, from_logits: bool = False,
+               ignore_label: float = -1.0) -> torch.Tensor:
+    """FocalLoss (losses.py:112-133)."""
+    pred_logits = pred_logits.float()
+    label = label.float()
+    one_hot = label > 0.5
+    sw = (label != ignore_label).float()
+    pred = pred_logits if from_logits else torch.sigmoid(pred_logits)
+
+    a = torch.where(one_hot, alpha * sw, (1.0 - alpha) * sw)
+    pt = torch.where(sw > 0, 1.0 - (label - pred).abs(), 1.0)
+    beta = (1.0 - pt) ** gamma
+    loss = -a * beta * torch.log((pt + eps).clamp_max(1.0)) * sw
+    return scale * _sum_non_batch(loss) / (_sum_non_batch(sw) + eps)
+
+
+def soft_iou_loss(pred: torch.Tensor, label: torch.Tensor,
+                  from_sigmoid: bool = False,
+                  ignore_label: float = -1.0) -> torch.Tensor:
+    """SoftIoU (losses.py:142-152)."""
+    pred = pred.float()
+    label = label.float().reshape(pred.shape)
+    sw = (label != ignore_label).float()
+    if not from_sigmoid:
+        pred = torch.sigmoid(pred)
+    inter = _sum_non_batch(pred * label * sw)
+    union = _sum_non_batch(torch.maximum(pred, label) * sw)
+    return 1.0 - inter / (union + 1e-8)
+
+
+def _inner_boundary(mask: torch.Tensor) -> torch.Tensor:
+    """Pixels of `mask` with a 4-adjacent background pixel; image borders are
+    not background (== cv2.distanceTransform(mask, DIST_L1, 3) == 1 on the
+    un-padded array, losses.py:194-195). mask: (..., H, W) bool."""
+    m = mask                           # neighbours with edge padding
+    up = torch.cat([m[..., :1, :], m[..., :-1, :]], -2)
+    dn = torch.cat([m[..., 1:, :], m[..., -1:, :]], -2)
+    lf = torch.cat([m[..., :1], m[..., :-1]], -1)
+    rt = torch.cat([m[..., 1:], m[..., -1:]], -1)
+    return m & ~(up & dn & lf & rt)
+
+
+def boundary_bce_loss(gt: torch.Tensor, pred_logits: torch.Tensor
+                      ) -> torch.Tensor:
+    """BoundaryCrossEntropyLoss (losses.py:183-213): BCE-with-logits summed
+    over the positive and negative GT boundary bands, each normalized by the
+    total element count. gt/pred: (B, H, W, 1). Returns a scalar."""
+    gtf = gt.float()
+    gmask = gtf[..., 0] > 0.5
+    b_pos = _inner_boundary(gmask)[..., None]
+    b_neg = _inner_boundary(~gmask)[..., None]
+    x = pred_logits.float()
+    bce = x.clamp_min(0.0) - x * gtf + F.softplus(-x.abs())
+    size = float(gtf.numel())
+    return (torch.where(b_pos, bce, 0.0).sum() / size
+            + torch.where(b_neg, bce, 0.0).sum() / size)
+
+
+def error_count(gt: torch.Tensor, pred_logits: torch.Tensor,
+                pred_thresh: float = 0.49) -> torch.Tensor:
+    """ErrorCount diagnostic (losses.py:216-224): the fraction of
+    mispredicted pixels. Returns a scalar."""
+    pred = torch.sigmoid(pred_logits.float()) > pred_thresh
+    diff = (gt.float() > 0.5) != pred
+    return diff.sum() / float(gt.numel())
+
+
+def cross_entropy_loss(pred_logits: torch.Tensor, label: torch.Tensor,
+                       ignore_index: int = 255,
+                       class_weight=None) -> torch.Tensor:
+    """mmseg-style multi-class CE (transformer_helper/cross_entropy_loss.py:
+    199): pred (B, H, W, C) logits, label (B, H, W) int class ids,
+    `ignore_index` pixels dropped; mean over valid pixels."""
+    valid = label != ignore_index
+    lab = torch.where(valid, label, 0).long()
+    logp = torch.log_softmax(pred_logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    if class_weight is not None:
+        nll = nll * torch.as_tensor(class_weight, dtype=torch.float32,
+                                    device=nll.device)[lab]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def accuracy(pred_logits: torch.Tensor, label: torch.Tensor,
+             ignore_index: int = 255) -> torch.Tensor:
+    """mmseg `accuracy` (transformer_helper/accuracy.py): top-1 pixel
+    accuracy over non-ignored pixels, in percent."""
+    valid = label != ignore_index
+    correct = (pred_logits.argmax(-1) == label) & valid
+    return 100.0 * correct.sum() / valid.sum().clamp_min(1)

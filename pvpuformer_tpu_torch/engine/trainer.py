@@ -14,12 +14,14 @@ around `train_step`:
     every), ...] (trainer.py:257-264): `last_checkpoint.npz` and numbered
     epoch files in the JAX format (utils/serialization.py);
   * scalars go to the console logger and, when torch's TensorBoard writer
-    imports, to TensorBoard (SummaryWriterAvg, trainer.py:209-244).
+    imports, to TensorBoard (SummaryWriterAvg, trainer.py:209-244);
+  * every `image_dump_interval` steps the first sample's qualitative panel
+    (the JAX Trainer's array) is written to `vis_dir` as a PNG by the
+    port's own encoder (the JAX Trainer writes a JPEG through PIL).
 
 The model and the optimizer are trained in place. The loader is any
 iterable of numpy batch dicts with `set_epoch(epoch)`. There is no mesh:
-one device, no data parallelism yet. The periodic image dump
-(`image_dump_interval`) needs utils/vis, which is not ported.
+one device, no data parallelism yet.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import nn
-from ..models.vpu import VPUModel
+from ..models.vpu import VPUModel, vpu_forward
 from ..utils.serialization import (load_checkpoint, params_from_numpy,
                                    save_checkpoint)
 from .metrics import AdaptiveIoU, adaptive_iou_step, state_thresholds
@@ -82,15 +85,13 @@ class Trainer:
                  checkpoint_interval=10,
                  metrics: Optional[Sequence[AdaptiveIoU]] = None,
                  tb_dir: Optional[str] = None,
+                 vis_dir: Optional[str] = None,
                  image_dump_interval: int = 0,
                  tb_dump_period: int = 25,
                  log_every: int = 25, seed: int = 0, device=None):
         """`device` None means the card (and raises without one); the model
         moves there, its parameters keep their identity (so `tx`, built by
         `make_optimizer(model)`, still holds them)."""
-        if image_dump_interval > 0:
-            raise NotImplementedError("image_dump_interval needs utils/vis, "
-                                      "which is not ported yet")
         self.device = nn.resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -101,6 +102,8 @@ class Trainer:
         self.checkpoint_interval = checkpoint_interval
         self.metrics = list(metrics) if metrics is not None else [AdaptiveIoU()]
         self.val_metrics = [AdaptiveIoU() for _ in self.metrics]
+        self.vis_dir = Path(vis_dir) if vis_dir else None
+        self.image_dump_interval = image_dump_interval
         self.log_every = log_every
         self.seed = seed
         self.global_step = 0
@@ -148,6 +151,9 @@ class Trainer:
                             epoch, i + 1, float(logs["loss"]),
                             (time.time() - t0) / (i + 1))
             self._log_scalar("Losses/loss", logs["loss"])
+            if self.image_dump_interval > 0 and \
+                    self.global_step % self.image_dump_interval == 0:
+                self._dump_visualization(batch)
         m.ingest_state(mstate)
         means = {k: float(v) / max(count, 1) for k, v in sums.items()}
         means["AdaptiveIoU"] = m.get_epoch_value()
@@ -184,6 +190,54 @@ class Trainer:
         logger.info("val epoch %d: loss %.4f iou %.4f", epoch,
                     means.get("loss", float("nan")), means["AdaptiveIoU"])
         return means
+
+    @torch.no_grad()
+    def dump_panel(self, batch) -> np.ndarray:
+        """The first sample's qualitative panel (trainer.py:219-220,
+        save_visualization at 556-592): [image + order-coded clicks | gt
+        prob map | predicted prob map] over [blend with gt boundaries |
+        predicted mask blend | FN/FP error map], from the current weights."""
+        from ..utils.vis import (draw_probmap, draw_with_blend_and_clicks,
+                                 error_map, get_boundaries)
+
+        img = np.asarray(batch["image"][0])
+        gt = np.asarray(batch["instances"][0, :, :, 0])
+        pts = np.asarray(batch["points"][:1])
+        dev = self.device
+        image = torch.as_tensor(np.asarray(batch["image"][:1]), device=dev)
+        net_in = torch.cat([image, torch.zeros_like(image[..., :1])], -1)
+        out = vpu_forward(self.model, self.cfg.model, net_in,
+                          torch.as_tensor(pts, device=dev))
+        pred = torch.sigmoid(out["instances"][0, :, :, 0].float()).cpu().numpy()
+
+        image_u8 = np.clip(img * 255, 0, 255).astype(np.uint8)
+        gt_disp = gt.copy()                 # ignore pixels at 0.25 (:588)
+        gt_disp[gt_disp < 0] = 0.25
+        row1 = np.concatenate([
+            draw_with_blend_and_clicks(image_u8, clicks_list=pts[0],
+                                       order_markers=True),
+            draw_probmap(gt_disp),
+            draw_probmap(pred),
+        ], axis=1)
+        gtb = (gt > 0.5).astype(np.int32)
+        blend = draw_with_blend_and_clicks(image_u8, mask=gtb,
+                                           clicks_list=pts[0])
+        blend[get_boundaries(gtb)] = (255, 255, 255)
+        row2 = np.concatenate([
+            blend,
+            draw_with_blend_and_clicks(image_u8,
+                                       mask=(pred > 0.5).astype(int) * 2),
+            error_map(gtb, pred > 0.5),
+        ], axis=1)
+        return np.concatenate([row1, row2], axis=0)
+
+    def _dump_visualization(self, batch) -> None:
+        if self.vis_dir is None:
+            return
+        from ..utils.vis import write_png
+        self.vis_dir.mkdir(parents=True, exist_ok=True)
+        write_png(self.vis_dir / f"{self.global_step:06d}.png",
+                  self.dump_panel(batch))
 
     def save(self, epoch: int, name: Optional[str] = None) -> None:
         if self.checkpoint_dir is None:

@@ -146,6 +146,21 @@ def jax_name(name: str) -> str:
     return "/".join(f"#{p}" if p.isdigit() else p for p in name.split("."))
 
 
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict / list tree of arrays (the JAX parameter tree's shape)
+    -> {flatten_tree name: array}, the names `params_from_numpy` reads."""
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}#{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
 def params_from_numpy(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat JAX leaves -> a state_dict for `VPUModel.load_state_dict`
     (strict loading refuses missing, extra or mis-shaped leaves). No leaf is

@@ -27,6 +27,14 @@ import pvpuformer_tpu_torch.inference.clicker
 import pvpuformer_tpu_torch.inference.datasets
 import pvpuformer_tpu_torch.inference.evaluation
 import pvpuformer_tpu_torch.utils.exp, pvpuformer_tpu_torch.evaluate
+import pvpuformer_tpu_torch.data, pvpuformer_tpu_torch.data.transforms
+import pvpuformer_tpu_torch.data.scribbles, pvpuformer_tpu_torch.data.loader
+import pvpuformer_tpu_torch.train, pvpuformer_tpu_torch.utils.torch_ingest
+import pvpuformer_tpu_torch.utils.vis
+import pvpuformer_tpu_torch.recipes.iSegNet.vpu_base448_cocolvis
+import pvpuformer_tpu_torch.recipes.iSegNet.vpu_large448_cocolvis
+import pvpuformer_tpu_torch.recipes.iSegNet.vpu_huge448_cocolvis
+import pvpuformer_tpu_torch.recipes.iSegNet.vpu_tiny_synthetic
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton'))
 assert not bad, bad
@@ -45,6 +53,29 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+DATA_CHECK = """
+import sys
+import pvpuformer_tpu_torch.data
+from pvpuformer_tpu_torch.data import (CocoLvisDataset, ImageDirTrainDataset,
+                                       Loader, SBDTrainDataset, scribbles,
+                                       transforms)
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'pvpuformer_tpu'))
+assert not bad, bad
+print('numpy only')
+"""
+
+
+def test_data_pipeline_imports_no_torch():
+    """The data package's workers may fork from a trainer that holds a CUDA
+    context: they must not touch torch."""
+    out = subprocess.run([sys.executable, "-c", DATA_CHECK], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "numpy only"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -24,11 +24,14 @@ import optax
 import pytest
 import torch
 
+from pvpuformer_tpu import data as jdata
+from pvpuformer_tpu.data import transforms as jT
 from pvpuformer_tpu.engine import optimizer as jopt, train_step as jts
 from pvpuformer_tpu.engine import trainer as jtr
 from pvpuformer_tpu.parallel import make_mesh
 from pvpuformer_tpu.utils import serialization as jser
-from pvpuformer_tpu_torch import nn as tnn
+from pvpuformer_tpu_torch import data as tdata, nn as tnn
+from pvpuformer_tpu_torch.data import transforms as tT
 from pvpuformer_tpu_torch.engine import optimizer as topt, train_step as tts
 from pvpuformer_tpu_torch.engine import trainer as ttr
 from pvpuformer_tpu_torch.models import vit as tvit
@@ -433,6 +436,127 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
                        torch.from_numpy(THR), cfg=cfg, num_iters=1)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ttr.Trainer(model, cfg, tx, _Loader(1))
-    with pytest.raises(NotImplementedError, match="utils/vis"):
-        ttr.Trainer(model, cfg, tx, _Loader(1), device="cpu",
-                    image_dump_interval=1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ttr.Trainer(model, cfg, tx, _Loader(1), image_dump_interval=1)
+
+
+# ---------------------------------------------------------------------------
+# the Trainer fed by the data pipeline; the image dump
+# ---------------------------------------------------------------------------
+
+def _synthetic_loaders(seed=5):
+    """The JAX and the port Loader over the same synthetic records, in the
+    tiny batch's shapes (batch 2, 64 x 64, 6 points, 50 scribble samples)."""
+    out = []
+    for data, T in ((jdata, jT), (tdata, tT)):
+        ds = data.SyntheticTrainDataset(
+            n_samples=4, hw=(72, 80), epoch_len=4, keep_background_prob=0.0,
+            num_scribble_samples=50, augmentator=T.train_augmentator((64, 64)),
+            points_sampler=data.MultiPointSampler(6, prob_gamma=0.8))
+        out.append(data.Loader(ds, 2, seed=seed, num_workers=2))
+    return out
+
+
+def test_loader_fed_trainer_matches_jax(monkeypatch):
+    """The port's Trainer on the port's Loader against the JAX Trainer on
+    JAX's Loader, 2 epochs of 2 steps: the same batches, num_iters and step
+    keys (the JAX Trainer's step stubbed to record them); then each step's
+    loss against JAX's `iterloss_value_and_grad` on that batch and key,
+    with JAX's draws injected and plain SGD applied to JAX's gradients on
+    the JAX side (loss 1e-5, parameters 1e-6, this file's tolerances). The
+    Trainer seed draws num_iters 1 for every step, the jitted JAX reference
+    compiled above (num_iters 1, prev_mask_drop_prob 0)."""
+    import random
+
+    def draws(s, epoch):
+        r = random.Random(f"{s}-{epoch}")
+        return [r.randint(1, 3) for _ in range(2)]
+
+    seed = next(s for s in range(1000) if draws(s, 0) == draws(s, 1) == [1, 1])
+    params, jcfg = jax_tiny_params()
+    jloader, tloader = _synthetic_loaders()
+    jrec = []
+
+    def stub(params, opt_state, batch, key, thr, *, cfg, tx, num_iters):
+        jrec.append(({k: np.asarray(v) for k, v in batch.items()}, num_iters,
+                     jax.random.key_data(key)))
+        b = batch["image"].shape[0]
+        return (params, opt_state, {"loss": jnp.float32(0.0)},
+                jnp.zeros((3, b)), jnp.zeros((b,), bool))
+
+    monkeypatch.setattr(jtr, "train_step", stub)
+    jtrainer = jtr.Trainer(params, jts.TrainConfig(model=jcfg),
+                           jopt.make_optimizer(params, "sgd", lr=1e-2,
+                                               momentum=0.0),
+                           jloader, mesh=make_mesh(1), seed=seed)
+    for epoch in range(2):
+        jtrainer.training(epoch)
+
+    model, cfg = _port(params, jcfg)
+    tx = topt.make_optimizer(model, "sgd", lr=1e-2, momentum=0.0)
+    monkeypatch.setattr(tts, "_train_noise", lambda cfg, gen, b, h, w, n:
+                        jax_train_noise(jax.random.key(gen.initial_seed()),
+                                        b, h, w, n))
+    trec = []
+    step = ttr.train_step
+
+    def rec(model, tx, batch, gen, thr, **kw):
+        out = step(model, tx, batch, gen, thr, **kw)
+        trec.append((batch, kw["num_iters"], gen.initial_seed(),
+                     float(out[0]["loss"])))
+        return out
+
+    monkeypatch.setattr(ttr, "train_step", rec)
+    ttr.Trainer(model, cfg, tx, tloader, device="cpu", seed=seed).run(2)
+
+    assert len(trec) == len(jrec) == 4
+    jp = params
+    for (tb, tn, tseed, tloss), (jb, jn, jkey) in zip(trec, jrec):
+        assert tb.keys() == jb.keys()
+        for k in jb:
+            np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+        assert tn == jn == 1
+        np.testing.assert_array_equal(jax.random.key_data(
+            jax.random.key(tseed)), jkey)
+        (jloss, _), jg = _j_value_and_grad(
+            jp, jts.TrainConfig(model=jcfg),
+            {k: jnp.asarray(v) for k, v in jb.items()},
+            jax.random.key(tseed), num_iters=1)
+        assert tloss == pytest.approx(float(jloss), abs=1e-5)
+        jp = jax.tree_util.tree_map(lambda a, g: a - 1e-2 * g, jp, jg)
+    jflat = jser.flatten_tree(jp)
+    for n, t in model.state_dict().items():
+        np.testing.assert_allclose(t.numpy(), jflat[tser.jax_name(n)],
+                                   atol=1e-6, rtol=0, err_msg=n)
+
+
+def test_dump_panel_equals_jax(tmp_path, monkeypatch):
+    """The Trainer's image dump: the port's panel is the JAX Trainer's
+    `_dump_visualization` array (captured at PIL.Image.fromarray) for the
+    same weights and Loader batch, and the PNG written holds it."""
+    PIL_Image = pytest.importorskip("PIL.Image")
+    params, jcfg = jax_tiny_params()
+    jloader, tloader = _synthetic_loaders()
+    batch = next(iter(tloader))
+    jtrainer = jtr.Trainer(params, jts.TrainConfig(model=jcfg),
+                           jopt.make_optimizer(params, "adam", lr=1e-3),
+                           jloader, mesh=make_mesh(1),
+                           vis_dir=str(tmp_path / "jax"))
+    seen = []
+    fromarray = PIL_Image.fromarray
+    monkeypatch.setattr(PIL_Image, "fromarray",
+                        lambda a, *x: seen.append(np.array(a))
+                        or fromarray(a, *x))
+    jtrainer._dump_visualization(batch)
+    assert len(seen) == 1
+    model, cfg = _port(params, jcfg)
+    trainer = ttr.Trainer(model, cfg, topt.make_optimizer(model, "adam"),
+                          tloader, device="cpu", vis_dir=str(tmp_path / "t"),
+                          image_dump_interval=1)
+    panel = trainer.dump_panel(batch)
+    assert panel.shape == (128, 192, 3) and panel.dtype == np.uint8
+    np.testing.assert_array_equal(panel, seen[0])
+    trainer.global_step = 7
+    trainer._dump_visualization(batch)
+    with PIL_Image.open(tmp_path / "t" / "000007.png") as im:
+        np.testing.assert_array_equal(np.asarray(im), panel)
