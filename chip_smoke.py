@@ -96,8 +96,31 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      each step's wall time spent waiting for its batch (a second epoch on
      process workers where it exceeds 5%), peak memory, and every kernel's
      launches equal to what the drawn num_iters and prompt types predict;
-then one JSON line of kernel summaries, the card's name and power limit,
-and, last, {"ok": true, "device": ...}.
+ 14. serving parity, tiny config f32, CUDA vs the CPU: the int8 linear at
+     the ViT-B@448 click shapes and a padded small one (bit-identical); a
+     controller session (clicks, undo, finish, init mask, a click outside
+     the image): result masks and panels identical, probabilities within
+     1e-5; an int8 `Predictor` session (first click identical, IoU within
+     5e-3: int8 rounding turns last-bit differences into whole quanta);
+     one session of each BRS mode (f-BRS-A / B / C, RGB-BRS, DistMap-BRS)
+     at max_iters 3: identical clicks, IoU within 1e-3;
+ 15. serving at ViT-B@448 bf16, seeded random weights, one model for every
+     session: the HTTP service in process on 127.0.0.1 with two concurrent
+     client sessions (10 requests each, then /mask and /vis), each mask
+     and panel bit-identical to a controller driven directly with the same
+     clicks, and the /click p50 with one and two clients; `python -m
+     pvpuformer_tpu_torch.demo --random-weights` as a process with REPL
+     commands on stdin, which must write its mask; 10 user-click rounds of
+     the bf16 and the int8 `Predictor` (p50 ms per round, the largest IoU
+     difference between them, launches per round: attention and LN+MLP
+     12 / 12 in bf16, 12 / 0 in int8) and one more `user_click_step` of
+     each captured into a CUDA graph; f-BRS-B and RGB-BRS, 3 oracle clicks
+     each at max_iters 20 (ms and functor evaluations per click; launches
+     per click: one min-plus, 12 attention and LN+MLP forwards per full
+     forward, 12 attention and LN+MLP backwards per RGB-BRS evaluation);
+then one JSON line of kernel summaries (launches summed over the paths of
+phases 5, 7, 9 and 15), the card's name and power limit, and, last,
+{"ok": true, "device": ...}.
 
     python3 chip_smoke.py --profile
 
@@ -108,8 +131,8 @@ round by kernel group, launches per round, the device busy share under
 the profiler, and the host-clock median of unprofiled rounds beside it.
 
 No phase's depth was cut for time: the whole script, the build included,
-took about 110 s on an NVIDIA H100 80GB HBM3 at 700 W before phase 13, of
-its 1200 s limit.
+takes about 185 s on an NVIDIA H100 80GB HBM3 at 700 W (phases 14-15
+about 35 s of it), of its 1200 s limit.
 """
 from __future__ import annotations
 
@@ -327,13 +350,19 @@ def phase_kernels(dev):
                        (_device_ms(call) if bf16 else None, lib_dev))
     # the attention backward at the training shapes, batch 32 (window
     # blocks 32 x 4 windows x 12 heads, global blocks 32 x 12 heads), bf16,
-    # and at a small shape in f32; the bf16 limit is ~2.5x the error
-    # measured on an H100 (3.9e-3), f32 as the forward. The bound counts
-    # the five N x N x D products of the function (S, dV, dP, dQ, dK).
-    # Kernel and plain version both start from the forward kernel's row
-    # statistics, as the training path's backward does
-    for label, shape, dt in (("window", (128, 196, 12, 64), torch.bfloat16),
-                             ("global", (32, 784, 12, 64), torch.bfloat16),
+    # at the click path's flip batch (8 window blocks, 2 global), which
+    # RGB-BRS and DistMap-BRS differentiate through, bf16, and at a small
+    # shape in f32; the bf16 limit is ~2.5x the error measured on an H100
+    # (3.9e-3), f32 as the forward. The bound counts the five N x N x D
+    # products of the function (S, dV, dP, dQ, dK). Kernel and plain
+    # version both start from the forward kernel's row statistics, as the
+    # training path's backward does; the click shapes also log the
+    # kernel's device time
+    bf = torch.bfloat16
+    for label, shape, dt in (("window", (128, 196, 12, 64), bf),
+                             ("global", (32, 784, 12, 64), bf),
+                             ("click window", (8, 196, 12, 64), bf),
+                             ("click global", (2, 784, 12, 64), bf),
                              ("small", (2, 100, 3, 32), torch.float32)):
         q, k, v, do = (torch.randn(shape, generator=g).to(dev, dt)
                        for _ in range(4))
@@ -354,11 +383,14 @@ def phase_kernels(dev):
             lib_ms = _time_ms(sdpa_bwd)
             del ot, sdpa_bwd
         st = fu.launch_attention_stats(q, k, v, sc)[1]
-        r = _compare(f"fused_attention_bwd {label} {tuple(shape)} {dt}",
-                     lambda: fu.launch_attention_bwd(q, k, v, do, sc, st),
+        call = lambda: fu.launch_attention_bwd(  # noqa: E731
+            q, k, v, do, sc, st)
+        r = _compare(f"fused_attention_bwd {label} {tuple(shape)} {dt}", call,
                      lambda: fu.fused_attention_bwd_plain(q, k, v, do, sc, st),
                      *((1e-2, 0.0) if bf16 else (1e-4, 1e-4)))
-        record("fused_attention_bwd", r, label == "global", bound, lib_ms)
+        dev_ms = _device_ms(call) if label.startswith("click") else None
+        record("fused_attention_bwd", r, label == "global", bound, lib_ms,
+               device=(dev_ms, None))
     # the click path's flip batch (2 masks x 448 rows, both error masks),
     # the training path's next_clicks at batch 32 (2 x 32 x 448 rows), the
     # batched sessions' oracle at B = 8 and 16 (2 x B x 448 rows), edges,
@@ -1741,13 +1773,14 @@ LOADER_WORKERS = 4        # train.py's default --workers
 WAIT_SHARE = 0.05         # phase 13b: the loader keeps ahead below this
 
 
-def _subprocess(args, cwd, what: str):
-    """`python -m <args>` from `cwd` with this checkout on the path: its
-    output, after a 0 exit code."""
+def _subprocess(args, cwd, what: str, stdin: str = ""):
+    """`python -m <args>` from `cwd` with this checkout on the path and
+    `stdin` as its input: its output, after a 0 exit code."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     t = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
-                         capture_output=True, text=True, timeout=600)
+                         input=stdin, capture_output=True, text=True,
+                         timeout=600)
     secs = time.perf_counter() - t
     if out.returncode != 0:
         raise AssertionError(f"{what} exited {out.returncode}:\n"
@@ -2016,6 +2049,389 @@ def phase_recipe(dev, card: str):
                  f"{share:.3f}) ({card})")
 
 
+SERVE_SCRIPT = ([("click", 220, 200, True), ("click", 300, 120, True),
+                 ("click", 60, 60, False), ("click", 250, 330, True),
+                 ("click", 400, 420, False), ("undo",), ("finish",)]
+                + [("click", x, y, p) for x, y, p in
+                   ((80, 100, True), (120, 60, True), (30, 200, False))])
+USER_CLICKS = [(200.5, 220.25, True), (300.0, 120.0, True),
+               (60.0, 60.0, False), (250.75, 330.5, True),
+               (400.0, 420.0, False), (180.0, 240.0, True),
+               (100.0, 380.0, False), (330.0, 200.0, True),
+               (220.0, 160.0, True), (20.0, 20.0, False)]
+BRS_PARITY_ITERS = 3      # phase 14's BRS sessions
+BRS_CLICKS = 3            # phase 15's BRS sessions, at max_iters 20
+
+
+def _drive(controller, image, script):
+    """A controller through a click script (phase 15's served sessions)."""
+    controller.set_image(image)
+    for op, *args in script:
+        if op == "click":
+            controller.add_click(*args)
+        elif op == "undo":
+            controller.undo_click()
+        else:
+            controller.finish_object()
+    return controller.result_mask
+
+
+def phase_serving_parity(dev):
+    """Phase 14: the serving surface at the tiny config, f32, CUDA vs the
+    CPU (same port weights): a controller session (clicks, undo, finish,
+    init mask, a click outside the 60 x 90 image), an int8 Predictor
+    session, one session of each BRS mode at max_iters 3, and the int8
+    linear at the ViT-B@448 click shapes and a padded small one."""
+    import torch
+    from pvpuformer_tpu_torch import nn
+    from pvpuformer_tpu_torch.inference.brs import get_predictor
+    from pvpuformer_tpu_torch.inference.controller import InteractiveController
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+
+    g = torch.Generator().manual_seed(3)
+    for m, k, n, dt in ((1568, 768, 2304, torch.bfloat16),
+                        (1568, 3072, 768, torch.bfloat16),
+                        (5, 20, 12, torch.float32)):
+        lin = nn.Linear(k, n, g=g)
+        q = nn.quantize_params(lin, min_in_dim=1, dtype=dt)
+        if not isinstance(q, nn.QuantLinear):
+            raise AssertionError("the linear was not quantized")
+        x = (torch.randn((2, m // 2 or 1, k), generator=g) * 2).to(dt)
+        want = nn.linear(q, x)
+        got = nn.linear(q.to(dev), x.to(dev)).cpu()
+        same = torch.equal(got, want)
+        _log(f"  int8 linear {tuple(x.shape)} @ ({k}, {n}) {dt}: cuda "
+             f"{'bit-identical to' if same else 'DIFFERS from'} the CPU")
+        if not same:
+            raise AssertionError("the int8 linear differs on the card")
+
+    cfg = PredictorConfig(model=tiny_config(), target_size=(64, 64),
+                          min_crop_size=32)
+    r = np.random.default_rng(7)
+    image = (r.uniform(size=(60, 90, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((60, 90), np.float32)
+    gt[14:50, 18:46] = 1.0
+    square = np.zeros((60, 90), np.float32)
+    square[8:24, 8:24] = 1.0
+    out = {}
+    for where in ("cpu", dev):
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+        c = InteractiveController(model, cfg, device=where)
+        c.set_image(image)
+        for x, y, pos in ((30, 20, True), (50, 40, False),
+                          (70.5, 12.5, True)):
+            c.add_click(x, y, pos)
+        c.undo_click()
+        c.finish_object()
+        c.set_mask(square)
+        c.add_click(16, 16, True)
+        c.add_click(95, 10, False)            # outside the image
+        ctl = (c.result_mask, c.current_object_prob, c.get_visualization())
+        pred = Predictor(model, cfg, device=where, int8=True)
+        pred.set_input(image, gt)
+        q8 = (pred.run_clicks(5), pred.clicks)
+        brs = {}
+        for mode in ("f-BRS-A", "f-BRS-B", "f-BRS-C", "RGB-BRS",
+                     "DistMap-BRS"):
+            bp = get_predictor(model, cfg, mode, max_iters=BRS_PARITY_ITERS,
+                               device=where)
+            bp.set_input(image, gt)
+            brs[mode] = (bp.run_clicks(3), bp.clicks)
+        out[str(where)] = ctl, q8, brs
+    (ctl_c, q8_c, brs_c), (ctl_g, q8_g, brs_g) = out["cpu"], out[str(dev)]
+    err = float(np.abs(ctl_c[1] - ctl_g[1]).max())
+    ok = (np.array_equal(ctl_c[0], ctl_g[0]) and err <= 1e-5
+          and np.array_equal(ctl_c[2], ctl_g[2]))
+    _log(f"  controller session (3 clicks, undo, finish, init mask, 2 clicks):"
+         f" result masks {'identical' if np.array_equal(ctl_c[0], ctl_g[0]) else 'DIFFER'}"
+         f", panels {'identical' if np.array_equal(ctl_c[2], ctl_g[2]) else 'DIFFER'}"
+         f", max |dprob|={err:.2e} (tol 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("controller session differs on the card")
+    # int8: a last-bit difference upstream of a quantized linear can move a
+    # value across a rounding boundary, so the session carries ~1e-3 of IoU
+    # noise (tests/test_torch_quant.py); the first click is the gt's EDT
+    err = float(np.abs(q8_c[0] - q8_g[0]).max())
+    first = q8_c[1][:, 2] == 0
+    same = np.array_equal(q8_c[1], q8_g[1])
+    ok = np.array_equal(q8_c[1][first], q8_g[1][first]) and err <= 5e-3
+    _log(f"  int8 Predictor 5 clicks: clicks "
+         f"{'identical' if same else 'part after the first'}, max |dIoU|="
+         f"{err:.2e} (tol 5e-3, first click identical) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"int8 session: cpu {q8_c}\ncuda {q8_g}")
+    for mode in brs_c:
+        (iou_c, clk_c), (iou_g, clk_g) = brs_c[mode], brs_g[mode]
+        err = float(np.abs(iou_c - iou_g).max())
+        ok = np.array_equal(clk_c, clk_g) and err <= 1e-3
+        _log(f"  {mode} 3 clicks at max_iters {BRS_PARITY_ITERS}: clicks "
+             f"{'identical' if np.array_equal(clk_c, clk_g) else 'DIFFER'}, "
+             f"max |dIoU|={err:.2e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{mode}: cpu {iou_c} {clk_c}\n"
+                                 f"cuda {iou_g} {clk_g}")
+
+
+def _png_b64(arr):
+    import base64
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+def _png(b64):
+    import base64
+    import io
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+
+def _http(base, path, payload=None, method=None):
+    import urllib.request
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(base + path, data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def _serve_session(base, image, script, out, key):
+    """One client session over HTTP: the script's requests, then /mask and
+    /vis, then delete; the /click latencies in ms."""
+    sid = _http(base, "/session", {"image": _png_b64(image)})["session"]
+    lat = []
+    for op, *args in script:
+        if op == "click":
+            x, y, pos = args
+            t = time.perf_counter()
+            _http(base, "/click", {"session": sid, "x": x, "y": y,
+                                   "positive": pos})
+            lat.append((time.perf_counter() - t) * 1e3)
+        else:
+            _http(base, "/" + op, {"session": sid})
+    mask = _png(_http(base, f"/mask?session={sid}", method="GET")["mask"])
+    vis = _png(_http(base, f"/vis?session={sid}", method="GET")["image"])
+    _http(base, f"/session?session={sid}", method="DELETE")
+    out[key] = mask, vis, lat
+
+
+def _user_session(pred, image, gt, clicks):
+    """User clicks through a Predictor: (IoUs against gt, ms per round,
+    launch counts per round, each read right after its round)."""
+    import torch
+    pred.set_input(image, gt)
+    ious, ms, counts = [], [], []
+    for y, x, pos in clicks:
+        _zero_counts()
+        t = time.perf_counter()
+        ious.append(pred.user_click(y, x, pos))        # float(iou) syncs
+        ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        counts.append(_counts())
+    return np.asarray(ious), ms, counts
+
+
+def _round_counts(counts, want, what):
+    for i, c in enumerate(counts):
+        got = {k: v for k, v in c.items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{what} round {i}: launches {got}, "
+                                 f"predicted {want}")
+
+
+def phase_serving(dev, card: str):
+    """Phase 15: the serving surface at ViT-B@448 bf16, random weights
+    (seed 0), one model for every session: the HTTP service in process
+    with two concurrent client sessions (masks bit-equal to controllers
+    driven directly), the demo REPL as a process, user-click rounds of the
+    bf16 and int8 predictors (p50, launches per round, one round of each
+    captured into a CUDA graph), f-BRS-B and RGB-BRS oracle sessions at
+    max_iters 20. Returns the launches of its paths, summed."""
+    import tempfile
+    import threading
+    import torch
+    from pvpuformer_tpu_torch import nn, serve
+    from pvpuformer_tpu_torch.inference.brs import get_predictor
+    from pvpuformer_tpu_torch.inference.controller import InteractiveController
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         user_click_step)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+
+    mcfg = vpu_base_config(dtype=torch.bfloat16)
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+    # the demo's and the service's configuration (demo.build_model)
+    pcfg = PredictorConfig(model=mcfg, target_size=mcfg.backbone.img_size,
+                           prob_thresh=0.49, limit_longest_side=800)
+    images = [(np.random.default_rng(s).uniform(size=(448, 448, 3)) * 255
+               ).astype(np.uint8) for s in (0, 1)]
+    depth = mcfg.backbone.depth
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # --- the HTTP service, two concurrent client sessions ---
+    srv = serve.build_server(
+        lambda: InteractiveController(model, pcfg, device=dev), "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    served = {}
+    try:
+        _serve_session(base, images[0], SERVE_SCRIPT[:2], {}, "warm-up")
+        clients = [threading.Thread(target=_serve_session,
+                                    args=(base, images[i], SERVE_SCRIPT,
+                                          served, i)) for i in (0, 1)]
+        t = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        both_s = time.perf_counter() - t
+        if any(c.is_alive() for c in clients) or len(served) != 2:
+            raise AssertionError("a client session did not finish")
+        alone = {}
+        _serve_session(base, images[0], SERVE_SCRIPT, alone, "alone")
+        if _http(base, "/healthz")["sessions"] != 0:
+            raise AssertionError("sessions left after delete")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    for i in (0, 1):
+        c = InteractiveController(model, pcfg, device=dev)
+        want = _drive(c, images[i], SERVE_SCRIPT)
+        mask, vis, _ = served[i]
+        same = np.array_equal(mask, want) and np.array_equal(
+            vis, c.get_visualization())
+        _log(f"  served session {i}: mask objects "
+             f"{sorted(set(np.unique(mask).tolist()))}, mask and panel "
+             f"{'bit-identical to' if same else 'DIFFER from'} a controller "
+             f"driven directly")
+        if not same or mask.shape != (448, 448):
+            raise AssertionError(f"served session {i} differs")
+    lat2 = served[0][2] + served[1][2]
+    click_p50 = float(np.median(alone["alone"][2]))
+    _log(f"  /click p50 {click_p50:.2f} ms with one client, "
+         f"{np.median(lat2):.2f} ms with two concurrent clients (two "
+         f"sessions of {len(SERVE_SCRIPT)} requests in {both_s:.2f} s) "
+         f"({card})")
+
+    # --- the demo REPL as a process ---
+    with tempfile.TemporaryDirectory() as tmp:
+        out, secs = _subprocess(
+            ["pvpuformer_tpu_torch.demo", "--random-weights"], tmp,
+            "the demo", stdin="p 220 200\np 300 120\nn 60 60\nundo\n"
+                              "finish\np 80 100\nsave mask.png\n"
+                              "vis vis.png\nquit\n")
+        from PIL import Image
+        path = os.path.join(tmp, "mask.png")
+        mask = np.asarray(Image.open(path)) if os.path.exists(path) else None
+        ok = (mask is not None and mask.shape == (448, 448)
+              and set(np.unique(mask)) <= {0, 1, 2}
+              and os.path.exists(os.path.join(tmp, "vis.png"))
+              and "object 1 saved" in out)
+        _log(f"  python -m pvpuformer_tpu_torch.demo --random-weights with "
+             f"REPL commands on stdin: rc 0 in {secs:.1f} s, mask "
+             f"{None if mask is None else mask.shape} objects "
+             f"{None if mask is None else sorted(set(np.unique(mask).tolist()))}"
+             f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the demo wrote no mask:\n{out[-2000:]}")
+
+    # --- user-click rounds, bf16 and int8, launches per round ---
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    side = torch.cuda.Stream()
+    res = {}
+    for name, int8 in (("bf16", False), ("int8", True)):
+        pred = Predictor(model, pcfg, device=dev, int8=int8)
+        _user_session(pred, images[0], gt, USER_CLICKS[:2])      # warm-up
+        ious, ms, counts = _user_session(pred, images[0], gt, USER_CLICKS)
+        want = {"fused_attention": depth,
+                "fused_ln_mlp": 0 if int8 else depth}
+        _round_counts(counts, want, f"{name} user click")
+        for c in counts:
+            add(c)
+        if not (np.isfinite(ious).all() and (ious >= 0).all()
+                and (ious <= 1).all()):
+            raise AssertionError(f"{name}: bad IoUs {ious}")
+        y, x, pos = (torch.tensor(v, device=dev) for v in (150.0, 150.0,
+                                                            True))
+        with torch.no_grad():
+            _capture(lambda: user_click_step(pred.model, pred.cfg,
+                                             pred.state, y, x, pos), side)
+        res[name] = ious, ms
+        _log(f"  {name} user clicks: p50 {np.median(ms):.2f} ms per round "
+             f"over {len(ms)} rounds ({card}); IoUs "
+             f"{np.round(ious, 4).tolist()}; launches per round {want}; one "
+             f"more user_click_step captured into a CUDA graph (no host "
+             f"sync)")
+        del pred
+    dious = float(np.abs(res["int8"][0] - res["bf16"][0]).max())
+    _log(f"  int8 against bf16 over the same {len(USER_CLICKS)} user clicks:"
+         f" max |dIoU| {dious:.4f}, p50 {np.median(res['int8'][1]):.2f} vs "
+         f"{np.median(res['bf16'][1]):.2f} ms ({card})")
+
+    # --- BRS oracle sessions at the default max_iters 20 ---
+    brs = {}
+    for mode in ("f-BRS-B", "RGB-BRS"):
+        bp = get_predictor(model, pcfg, mode, device=dev)
+        bp.set_input(images[0], gt)
+        bp.next_click()                                         # warm-up
+        bp.set_input(images[0], gt)
+        ms, evals, ious = [], [], []
+        for _ in range(BRS_CLICKS):
+            _zero_counts()
+            e0 = bp.evaluations
+            t = time.perf_counter()
+            ious.append(bp.next_click())
+            ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            ev = bp.evaluations - e0
+            counts = _counts()
+            add(counts)
+            evals.append(ev)
+            full = ev + 1 if mode == "RGB-BRS" else 1
+            want = {"fused_attention": depth * full,
+                    "fused_ln_mlp": depth * full, "minplus_rows": 1,
+                    "fused_attention_bwd": depth * ev if mode == "RGB-BRS"
+                    else 0,
+                    "fused_ln_mlp_bwd": depth * ev if mode == "RGB-BRS"
+                    else 0}
+            _round_counts([counts], want, f"{mode} click")
+        ious = np.asarray(ious)
+        if not (np.isfinite(ious).all() and (ious >= 0).all()
+                and (ious <= 1).all()):
+            raise AssertionError(f"{mode}: bad IoUs {ious}")
+        brs[mode] = {"ms_per_click": ms, "evaluations": evals,
+                     "ious": ious.tolist()}
+        _log(f"  {mode} {BRS_CLICKS} oracle clicks at max_iters 20: ms per "
+             f"click {np.round(ms, 1).tolist()}, functor evaluations "
+             f"{evals} ({card}); IoUs {np.round(ious, 4).tolist()}; "
+             f"launches per click as predicted (attention and LN+MLP "
+             f"forward {depth} per full forward, their backwards {depth} per"
+             f" RGB-BRS evaluation, one min-plus)")
+        del bp
+    summary = {"card": card,
+               "user_click_p50_ms": {k: float(np.median(v[1]))
+                                     for k, v in res.items()},
+               "click_request_p50_ms": {"one client": click_p50,
+                                        "two clients": float(
+                                            np.median(lat2))},
+               "int8_max_abs_diou": dious, "brs": brs}
+    _log("  phase 15 summary: " + json.dumps(summary))
+    del model
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2027,7 +2443,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/13] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/15] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -2038,48 +2454,58 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/13] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/15] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler")
         print(json.dumps({"profile": profile_paths(dev, smi), "card": smi}))
         return 0
 
-    _log("[3/13] kernels vs plain versions")
+    _log("[3/15] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/13] model parity, tiny config f32")
+    _log("[4/15] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/13] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/15] main path: ViT-B@448 bf16 click sessions")
     launches, model = phase_main(dev, smi)
-    _log("[6/13] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/15] prompt parity, tiny config f32, four prompt variants")
     phase_prompt_parity(dev)
-    _log("[7/13] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/15] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = phase_prompts(dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     torch.cuda.empty_cache()
-    _log("[8/13] training parity, tiny config f32")
+    _log("[8/15] training parity, tiny config f32")
     phase_train_parity(dev)
-    _log("[9/13] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/15] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = phase_train(dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/13] evaluation parity, tiny config f32: sequential and "
+    _log("[10/15] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
     phase_eval_parity(dev)
-    _log("[11/13] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _log("[11/15] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     phase_batched(dev, smi)
     torch.cuda.empty_cache()
-    _log("[12/13] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _log("[12/15] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     phase_presets(dev, smi)
     torch.cuda.empty_cache()
-    _log("[13/13] the training entry point: the tiny recipe and the "
+    _log("[13/15] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
          "shipped recipe through the data pipeline")
     phase_entry(dev)
     phase_recipe(dev, smi)
+    torch.cuda.empty_cache()
+    _log("[14/15] serving parity, tiny config f32: controller, int8 and BRS "
+         "sessions, CUDA vs the CPU")
+    phase_serving_parity(dev)
+    _log("[15/15] serving at ViT-B@448 bf16: the HTTP service, the demo, "
+         "user clicks (bf16 and int8), f-BRS-B and RGB-BRS")
+    serving = phase_serving(dev, smi)
+    for name in ("fused_attention", "fused_attention_bwd", "minplus_rows",
+                 "fused_ln_mlp"):
+        launches[name] += serving.get(name, 0)
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",

@@ -4,7 +4,11 @@ itself the reference's scripts/evaluate_vpumodel.py):
     python -m pvpuformer_tpu_torch.evaluate NoBRS --checkpoint ckpt.npz \
         --datasets GrabCut,Berkeley,DAVIS,SBD,PascalVOC \
         [--n-clicks 20] [--target-iou 0.95] [--thresh 0.49] [--batched B] \
-        [--print-ious] [--save-ious] [--prompt-mode 0|1|2] [--device cpu]
+        [--print-ious] [--save-ious] [--prompt-mode 0|1|2] [--int8] \
+        [--device cpu]
+
+The mode is NoBRS, f-BRS-A / B / C, RGB-BRS or DistMap-BRS
+(inference/brs.py); --int8 (NoBRS only) runs the int8 PTQ model.
 
 Protocol constants follow evaluate_vpumodel.py: 20 clicks at most, target
 IoU 0.95, threshold 0.49, flip TTA on, zoom-in target the model's crop
@@ -13,8 +17,8 @@ skip_clicks=-1 (evaluate_vpumodel.py:54-58,87-90,132,187-204). A
 checkpoint in the JAX package's format carries its config;
 --random-weights builds a seeded ViT-B / L / H for pipeline runs. It runs
 on the card unless --device cpu is given. The table and the pickles are
-those of the JAX CLI. Not ported yet: the BRS modes, SAM, --eval-mesh,
---int8 and --vis-preds; each exits with an error.
+those of the JAX CLI. Not ported yet: SAM, --eval-mesh and --vis-preds;
+each exits with an error.
 """
 from __future__ import annotations
 
@@ -37,13 +41,14 @@ DATASET_PATH_KEYS = {
     "HARD": "HARD_PATH", "ADE20K": "ADE20K_PATH",
 }
 EVAL_MODE = "cvpr"                 # the JAX CLI's default, in pickle names
+MODES = ("NoBRS", "f-BRS-A", "f-BRS-B", "f-BRS-C", "RGB-BRS", "DistMap-BRS")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("mode", nargs="?", default="NoBRS",
-                   help="NoBRS (the BRS modes and SAM are not ported yet)")
+                   help=" / ".join(MODES) + " (SAM is not ported yet)")
     p.add_argument("--checkpoint", default=None,
                    help="a .npz checkpoint in the JAX package's format")
     p.add_argument("--random-weights", action="store_true",
@@ -62,8 +67,11 @@ def parse_args(argv=None):
     p.add_argument("--prompt-mode", type=int, default=0, choices=[0, 1, 2],
                    help="0 clicks / 1 +boxes / 2 +scribbles")
     p.add_argument("--batched", type=int, default=0, metavar="B",
-                   help="evaluate B sessions per batch (clicks only; 0 = "
-                        "one session at a time)")
+                   help="evaluate B sessions per batch (NoBRS clicks only; "
+                        "0 = one session at a time)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 PTQ of every linear (per-channel weights, "
+                        "dynamic per-row activations); NoBRS only")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default=None,
@@ -82,16 +90,22 @@ def parse_args(argv=None):
     not_ported = p.add_argument_group("not ported yet")
     for flag in ("--sam-checkpoint", "--sam-model-type", "--eval-mesh"):
         not_ported.add_argument(flag, default=None)
-    for flag in ("--sam-multimask", "--sam-feedback-mask", "--vis-preds",
-                 "--int8"):
+    for flag in ("--sam-multimask", "--sam-feedback-mask", "--vis-preds"):
         not_ported.add_argument(flag, action="store_true")
     args = p.parse_args(argv)
     for name in ("sam_checkpoint", "sam_model_type", "sam_multimask",
-                 "sam_feedback_mask", "eval_mesh", "vis_preds", "int8"):
+                 "sam_feedback_mask", "eval_mesh", "vis_preds"):
         if getattr(args, name):
             p.error(f"--{name.replace('_', '-')} is not ported yet")
-    if args.mode.lower() != "nobrs":
-        p.error(f"mode {args.mode} is not ported yet (NoBRS is)")
+    nobrs = args.mode.lower() == "nobrs"
+    if not nobrs and args.mode.lower() not in {m.lower() for m in MODES}:
+        p.error(f"mode {args.mode} is not ported yet ({', '.join(MODES)} "
+                f"are)")
+    if args.int8 and not nobrs:
+        p.error("--int8 is NoBRS only (BRS differentiates the forward; the "
+                "int8 rounding has no useful gradient)")
+    if args.batched > 0 and not nobrs:
+        p.error("--batched runs NoBRS only")
     if args.batched > 0 and args.prompt_mode != 0:
         p.error("--batched runs clicks only (--prompt-mode 0)")
     return args
@@ -197,7 +211,8 @@ def main(argv=None) -> None:
     from .inference.evaluation import (compute_noc_metric, evaluate_dataset,
                                        get_results_table, get_time_metrics,
                                        mean_iou_per_click)
-    from .inference.predictor import Predictor, PredictorConfig
+    from .inference.brs import get_predictor
+    from .inference.predictor import PredictorConfig
     from .nn import resolve_device
     from .utils.exp import load_config_file
 
@@ -232,15 +247,17 @@ def main(argv=None) -> None:
                                skip_clicks=-1, prompt_mode=args.prompt_mode)
         if args.batched > 0:
             bev = BatchedEvaluator(ds_model, pcfg, batch_size=args.batched,
-                                   device=device)
+                                   device=device, int8=args.int8)
             all_ious, elapsed, stats = bev.evaluate(
                 dataset, max_clicks=args.n_clicks,
                 max_iou_thr=args.target_iou, min_clicks=args.min_n_clicks)
             print(f"throughput: {stats['objects_per_sec']:.3f} obj/s, "
                   f"{stats['clicks_per_sec']:.2f} clicks/s")
         else:
+            predictor = get_predictor(ds_model, pcfg, brs_mode=args.mode,
+                                      int8=args.int8, device=device)
             all_ious, elapsed = evaluate_dataset(
-                dataset, Predictor(ds_model, pcfg, device=device),
+                dataset, predictor,
                 max_iou_thr=args.target_iou, pred_thr=args.thresh,
                 min_clicks=args.min_n_clicks, max_clicks=args.n_clicks,
                 progress=True)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models.vpu import VPUModel
-from ..nn import cast_params, resolve_device
+from ..nn import inference_model, resolve_device
 from .predictor import (PredictorConfig, SessionState, batched_click_step,
                         init_session, stack_states)
 
@@ -44,12 +44,14 @@ def resolve_batched_cfg(cfg: PredictorConfig) -> PredictorConfig:
 class BatchedEvaluator:
     """Evaluate a dataset B sessions at a time. The model is moved to
     `device` (None: the card; device="cpu" for the CPU) and cast once to
-    the config's compute dtype, in place, as `Predictor` does."""
+    the config's compute dtype, in place, as `Predictor` does; `int8` runs
+    a quantized copy (`nn.inference_model`)."""
 
     def __init__(self, model: VPUModel, cfg: PredictorConfig,
-                 batch_size: int = 8, device=None):
+                 batch_size: int = 8, device=None, int8: bool = False):
         self.device = resolve_device(device)
-        self.model = cast_params(model.to(self.device), cfg.model.dtype)
+        self.model = inference_model(model, cfg.model.dtype, self.device,
+                                     int8)
         self.cfg = resolve_batched_cfg(cfg)
         self.batch_size = batch_size
 

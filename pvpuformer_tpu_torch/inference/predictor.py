@@ -31,7 +31,7 @@ from ..engine.prompt_sim import (_bbox, _first_true,
                                  connected_regions_mask_batch, synth_boxes,
                                  synth_scribbles)
 from ..models.vpu import VPUConfig, VPUModel, vpu_forward
-from ..nn import cast_params, resolve_device
+from ..nn import inference_model, resolve_device
 from ..ops.edt import next_click_from_error, squared_edt_pair
 from ..ops.resize import roi_crop_resize, roi_paste_back
 
@@ -577,16 +577,69 @@ def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     return roi_paste_back(probs, roi, hc, wc), roi, has_roi
 
 
+def _put_click(states: SessionState, is_pos: torch.Tensor, cy: torch.Tensor,
+               cx: torch.Tensor, clear: bool = True) -> SessionState:
+    """Write one click per session of a batch (is_pos, cy, cx (B,), cy / cx
+    int32 canvas coords) into its slot (a click past the limit overwrites
+    the last slot of its sign), with order = click_count; with `clear`,
+    clear not_clicked there (the oracle's clicks, always inside the
+    canvas)."""
+    b, twon = states.points.shape[:2]
+    n = twon // 2
+    hc, wc = states.gt.shape[-2:]
+    sess = torch.arange(b, device=states.gt.device)
+    row = torch.stack([cy.float(), cx.float(), states.click_count.float()], -1)
+    slot = torch.where(is_pos, states.num_pos.clamp_max(n - 1),
+                       n + states.num_neg.clamp_max(n - 1))
+    points = states.points.reshape(b * twon, 3).index_copy(
+        0, sess * twon + slot, row).reshape(b, twon, 3)
+    not_clicked = states.not_clicked
+    if clear:
+        not_clicked = not_clicked.reshape(-1).index_fill(
+            0, (sess * hc + cy) * wc + cx, False).reshape(b, hc, wc)
+    return states._replace(points=points, not_clicked=not_clicked,
+                           num_pos=states.num_pos + is_pos.int(),
+                           num_neg=states.num_neg + (~is_pos).int(),
+                           click_count=states.click_count + 1)
+
+
+def _put_user_click(states: SessionState, is_pos: torch.Tensor,
+                    cy: torch.Tensor, cx: torch.Tensor) -> SessionState:
+    """`_put_click` for a click from a person, which may lie off the
+    canvas: not_clicked is cleared as JAX's `.at[cy, cx].set(False)` does
+    (a negative coord counts from the end, a coord outside clears
+    nothing); the slot keeps the coords as given."""
+    b = states.points.shape[0]
+    hc, wc = states.gt.shape[-2:]
+    sess = torch.arange(b, device=states.gt.device)
+    wy = torch.where(cy < 0, cy + hc, cy)
+    wx = torch.where(cx < 0, cx + wc, cx)
+    inside = (wy >= 0) & (wy < hc) & (wx >= 0) & (wx < wc)
+    flat = (sess * hc + wy.clamp(0, hc - 1)) * wc + wx.clamp(0, wc - 1)
+    not_clicked = states.not_clicked.reshape(-1)
+    not_clicked = not_clicked.index_put(
+        (flat,), not_clicked[flat] & ~inside).reshape(b, hc, wc)
+    return _put_click(states._replace(not_clicked=not_clicked), is_pos, cy,
+                      cx, clear=False)
+
+
+def _iou(cfg: PredictorConfig, states: SessionState,
+         probs: torch.Tensor) -> torch.Tensor:
+    """Per-session IoU of probs > prob_thresh against the gt (ignore -1;
+    inference/utils.py:80-87); 0 for an empty gt and prediction."""
+    gt_pos = states.gt == 1
+    not_ignore = states.gt != -1
+    pm = probs[..., 0] > cfg.prob_thresh
+    inter = (pm & gt_pos & not_ignore).flatten(1).sum(1)
+    union = ((pm | gt_pos) & not_ignore).flatten(1).sum(1)
+    return inter.float() / union.float().clamp_min(1.0)
+
+
 def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
                 gen: Optional[torch.Generator]):
     """One interactive round of every session of a batch: (new states,
     ious (B,)). One min-plus launch for the B oracle clicks and one model
     forward at batch 2B (B without flip)."""
-    b, twon = states.points.shape[:2]
-    n = twon // 2
-    hc, wc = states.gt.shape[-2:]
-    sess = torch.arange(b, device=states.gt.device)
-
     # --- 1. oracle next click (clicker.py:21-69) ---
     pred = states.prev_probs[..., 0] > cfg.prob_thresh
     gt_pos = states.gt == 1
@@ -595,18 +648,8 @@ def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
     fp = ~gt_pos & pred & not_ignore
     is_pos, cy, cx, _ = next_click_from_error(
         fn, fp, states.not_clicked, chunk=cfg.edt_chunk, rows=cfg.edt_rows)
-    row = torch.stack([cy.float(), cx.float(), states.click_count.float()], -1)
-    slot = torch.where(is_pos, states.num_pos.clamp_max(n - 1),
-                       n + states.num_neg.clamp_max(n - 1))
-    points = states.points.reshape(b * twon, 3).index_copy(
-        0, sess * twon + slot, row).reshape(b, twon, 3)
-    not_clicked = states.not_clicked.reshape(-1).index_fill(
-        0, (sess * hc + cy) * wc + cx, False).reshape(b, hc, wc)
-    click_count = states.click_count + 1
-    st = states._replace(points=points, not_clicked=not_clicked,
-                         num_pos=states.num_pos + is_pos.int(),
-                         num_neg=states.num_neg + (~is_pos).int(),
-                         click_count=click_count)
+    st = _put_click(states, is_pos, cy, cx)
+    points, click_count = st.points, st.click_count
 
     # --- 2. forward, with the optional CFR cascade (base.py:59-72) ---
     noise = None
@@ -630,10 +673,7 @@ def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
     st = st._replace(prev_probs=probs, roi=roi, has_roi=has_roi)
 
     # --- 3. IoU (inference/utils.py:80-87) ---
-    pm = probs[..., 0] > cfg.prob_thresh
-    inter = (pm & gt_pos & not_ignore).flatten(1).sum(1)
-    union = ((pm | gt_pos) & not_ignore).flatten(1).sum(1)
-    return st, inter.float() / union.float().clamp_min(1.0)
+    return st, _iou(cfg, st, probs)
 
 
 def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState,
@@ -658,6 +698,25 @@ def batched_click_step(model: VPUModel, cfg: PredictorConfig,
     return _click_step(model, cfg, states, None)
 
 
+def user_click_step(model: VPUModel, cfg: PredictorConfig,
+                    state: SessionState, y: torch.Tensor, x: torch.Tensor,
+                    is_positive: torch.Tensor):
+    """One round of one session with a user's click in place of the
+    oracle's (the GUI / serving path, predictor.py:597-634; the gt plays no
+    part in the click). y, x: 0-d float tensors of canvas coords, truncated
+    to int32 as JAX's `jnp.asarray(y, jnp.int32)` does; is_positive: a 0-d
+    bool tensor. All three lie on the session's device, so the round makes
+    no host sync. Returns (new_state, iou against state.gt: 0 for a
+    gt-less demo session)."""
+    states = _put_user_click(_as_batch(state), is_positive.reshape(1),
+                             y.to(torch.int32).reshape(1),
+                             x.to(torch.int32).reshape(1))
+    probs, roi, has_roi = _forward_round(model, cfg, states, states.points,
+                                         states.prev_probs)
+    states = states._replace(prev_probs=probs, roi=roi, has_roi=has_roi)
+    return session(states, 0), _iou(cfg, states, probs)[0]
+
+
 def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,
                num_clicks: int, gen: Optional[torch.Generator] = None):
     """`num_clicks` rounds; returns (final state, ious (num_clicks,) tensor).
@@ -680,13 +739,15 @@ class Predictor:
     """Session driver: canvas bucketing and an undo stack (the reference
     controller's session surface, headless). The model is moved to `device`
     (None: the card; device="cpu" for the CPU) and cast once to the
-    config's compute dtype. Each `set_input` restarts the prompt draws from
+    config's compute dtype, in place; with `int8` it runs a quantized copy
+    (`nn.inference_model`). Each `set_input` restarts the prompt draws from
     a CPU generator seeded NOISE_SEED."""
 
-    def __init__(self, model: VPUModel, cfg: PredictorConfig, device=None):
+    def __init__(self, model: VPUModel, cfg: PredictorConfig, device=None,
+                 int8: bool = False):
         self.device = resolve_device(device)
-        # in place: the caller's module is moved and cast, not copied
-        self.model = cast_params(model.to(self.device), cfg.model.dtype)
+        self.model = inference_model(model, cfg.model.dtype, self.device,
+                                     int8)
         self.cfg = cfg
         self.gen = torch.Generator()
         self.state: Optional[SessionState] = None
@@ -720,6 +781,21 @@ class Predictor:
         self._undo.append(self.state)
         self.state, iou = click_step(self.model, self.cfg, self.state,
                                      self.gen)
+        return float(iou)
+
+    @torch.no_grad()
+    def user_click(self, y: float, x: float, is_positive: bool) -> float:
+        """One round with a user's click (the GUI / serving path); returns
+        IoU against the session's gt (0 for a gt-less demo session). Grad
+        mode is off, whatever the calling thread's: the undo stack keeps
+        the states, which must not hold a forward's autograd graph."""
+        self._undo.append(self.state)
+        dev = self.device
+        self.state, iou = user_click_step(
+            self.model, self.cfg, self.state,
+            torch.tensor(float(y), device=dev),
+            torch.tensor(float(x), device=dev),
+            torch.tensor(bool(is_positive), device=dev))
         return float(iou)
 
     @torch.no_grad()

@@ -32,10 +32,12 @@ class ViTConfig:
       * ln_f32 keeps its numeric meaning for the pre-attention LayerNorm
         (False: JAX's bf16 rounding op by op; a jitted JAX model keeps
         excess precision inside XLA's fusion, ~1.4% of outputs a ulp off).
-    The MLP half always goes through `fused_ln_mlp`: JAX's
+    The MLP half goes through `fused_ln_mlp`: JAX's
     `mlp_impl="fused"` numerics, whose LayerNorm keeps f32 statistics
     (held against JAX in bf16, one block deep and for the whole model, by
-    tests/test_torch_bf16_parity.py).
+    tests/test_torch_bf16_parity.py). An int8-quantized MLP
+    (`nn.quantize_params`) leaves the kernel, as JAX's does
+    (pvpuformer_tpu/models/vit.py:136-145).
     Not ported: the TPU crossovers behind "auto" (dense below
     MIN_SCORE_WORK); JAX's default `mlp_impl="xla"` in bf16, which rounds
     fc1's output to bf16 before its bias and GELU; `ln_f32=False` for the
@@ -103,6 +105,12 @@ def block_forward(p: Block, x: torch.Tensor, num_heads: int, eps: float,
     attn_fn = flash_attention if attn_impl == "flash" else fused_attention
     attn = attn_fn(q, k, v).reshape(b, n, d)
     x = x + nn.linear(p.attn.proj, attn)
+    if isinstance(p.mlp.fc1, nn.QuantLinear) or isinstance(p.mlp.fc2,
+                                                          nn.QuantLinear):
+        # the kernel reads float weights; JAX's XLA MLP runs the int8 one:
+        # LayerNorm, int8 fc1, GELU in x's dtype, int8 fc2 + residual
+        h = nn.layer_norm(p.norm2, x, eps, f32=ln_f32)
+        return x + nn.linear(p.mlp.fc2, nn.gelu(nn.linear(p.mlp.fc1, h)))
     return fused_ln_mlp(x, p.norm2, p.mlp, eps)
 
 

@@ -151,23 +151,33 @@ def init_vpu(cfg: VPUConfig, generator: torch.Generator,
 
 
 def prepare_input(p: VPUModel, cfg: VPUConfig, image: torch.Tensor):
-    """(B, H, W, 3|4) -> normalized rgb, prev_mask (is_model.py:59-66)."""
+    """(B, H, W, 3|4) -> normalized rgb, prev_mask (is_model.py:59-66).
+    The division by the constant std is an f32 product with its reciprocal,
+    rounded once to the image dtype: XLA compiles JAX's so, and the int8
+    path's per-row rounding turns a last-bit difference here into whole
+    quanta."""
     prev_mask = None
     if cfg.with_prev_mask:
         prev_mask = image[..., 3:4]
         image = image[..., :3]
-    return (image - p.mean.to(image.dtype)) / p.std.to(image.dtype), prev_mask
+    inv_std = 1.0 / p.std.to(image.dtype).float()
+    rgb = (image - p.mean.to(image.dtype)).float() * inv_std
+    return rgb.to(image.dtype), prev_mask
 
 
 def coord_features(cfg: VPUConfig, image: torch.Tensor, prev_mask,
                    points: torch.Tensor, boxes=None, scribbles=None,
-                   prompt_type: int = 0) -> torch.Tensor:
+                   prompt_type: int = 0, coord_bias=None) -> torch.Tensor:
     """[prev_mask, pos, neg] channels (is_model.py:78-95), with the box
     outline (prompt_type 1) or the scribble stroke (2) drawn into the disks.
-    `scribbles` = ((B, 1, S, 2), (B, 1, 4)) in the trainer layout."""
+    `scribbles` = ((B, 1, S, 2), (B, 1, 4)) in the trainer layout.
+    `coord_bias` (B, H, W, 2), when given, is added to the two disk channels
+    only: DistMap-BRS's optimization target (reference brs.py:272-276)."""
     h, w = image.shape[1], image.shape[2]
     disks = dist_maps(points, h, w, norm_radius=cfg.norm_radius,
                       use_disks=cfg.use_disks).to(image.dtype)
+    if coord_bias is not None:
+        disks = disks + coord_bias.to(image.dtype)
     if prompt_type == 1 and boxes is not None:
         disks = draw_box_into_coords(disks, boxes, points.shape[1] // 2)
     elif prompt_type == 2 and scribbles is not None:
@@ -177,24 +187,34 @@ def coord_features(cfg: VPUConfig, image: torch.Tensor, prev_mask,
     return disks
 
 
+def vpu_backbone_embed(p: VPUModel, cfg: VPUConfig, rgb: torch.Tensor,
+                       coords: torch.Tensor) -> torch.Tensor:
+    """Image + coord patch embeddings through the ViT (is_vpu_model.py:
+    385-386): (B, H, W, 3) normalized rgb, (B, H, W, 3) coords -> (B, N, D)
+    tokens."""
+    add = nn.patch_embed(p.patch_embed_coords, coords, cfg.backbone.patch_size)
+    return vit_backbone_forward(p.backbone, cfg.backbone, rgb, additional=add)
+
+
 def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
                 points: torch.Tensor, boxes: Optional[torch.Tensor] = None,
                 scribbles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 prompt_type: int = 0,
-                ppue_points: Optional[torch.Tensor] = None
+                ppue_points: Optional[torch.Tensor] = None,
+                coord_bias: Optional[torch.Tensor] = None
                 ) -> Dict[str, Optional[torch.Tensor]]:
     """Returns {"instances": (B, H, W, 1) logits, "instances_aux":
     (B, H, W, 2*num_max_points) P2CL maps}. `prompt_type` (0 click, 1 box,
     2 scribble) selects the PPuE encoder; boxes (B, 5) and scribbles
     ((B, 1, S, 2), (B, 1, 4)) as in the JAX package. `ppue_points`
     replaces the clicks fed to the PPuE encoders only (the disks keep
-    `points`): the prompt session's extra error click."""
+    `points`): the prompt session's extra error click. `coord_bias`
+    (B, H, W, 2) perturbs the disk channels (DistMap-BRS)."""
     image = image.to(cfg.dtype)
     rgb, prev_mask = prepare_input(p, cfg, image)
     coords = coord_features(cfg, rgb, prev_mask, points, boxes, scribbles,
-                            prompt_type)
-    add = nn.patch_embed(p.patch_embed_coords, coords, cfg.backbone.patch_size)
-    tokens = vit_backbone_forward(p.backbone, cfg.backbone, rgb, additional=add)
+                            prompt_type, coord_bias)
+    tokens = vpu_backbone_embed(p, cfg, rgb, coords)
     ppts = points if ppue_points is None else ppue_points
     if prompt_type == 0:
         pv = ppue_click(ppts, cfg.ppue, num_max_points=cfg.num_max_points)

@@ -17,6 +17,7 @@ f32, and dense `sdpa` rounds its logits to the input dtype.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -143,10 +144,170 @@ class PatchEmbed(nn.Module):
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, QuantLinear):
+        return linear_int8(p, x)
     y = x @ p.w.to(x.dtype)
     if p.b is not None:
         y = y + p.b.to(x.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# int8 PTQ serving path (pvpuformer_tpu/nn.py:98-176)
+#
+# Per-output-channel symmetric weight scales, computed offline, and per-row
+# dynamic symmetric activation scales; int8 x int8 -> int32 products.
+# `quantize_params` returns a quantized copy of a module tree in which every
+# linear-shaped node is a `QuantLinear`, and `linear` / `patch_embed`
+# dispatch on it. The quantized copy is a serving-time transform: configs
+# and checkpoints keep the float weights.
+# ---------------------------------------------------------------------------
+
+
+class QuantLinear(nn.Module):
+    """An int8 linear: `w_q` int8 (in, out), `w_s` f32 (out,), `b` f32
+    (out,) or None, all buffers. Device moves apply to them; dtype casts of
+    the tree (`cast_params`) leave them as they are: w_q is int8, and the
+    scales and bias stay f32, as JAX's quantized leaves do. w_q is stored
+    column-major (its transpose is contiguous), the layout cuBLASLt's int8
+    product takes as its second operand; its values are JAX's (in, out)."""
+
+    def __init__(self, w_q: torch.Tensor, w_s: torch.Tensor,
+                 b: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("w_q", w_q.t().contiguous().t())
+        self.register_buffer("w_s", w_s)
+        self.register_buffer("b", b)
+
+    def _apply(self, fn, recurse=True):
+        self.w_q = fn(self.w_q)           # an int8 tensor: moves, never casts
+        self.w_s = self.w_s.to(self.w_q.device)
+        if self.b is not None:
+            self.b = self.b.to(self.w_q.device)
+        return self
+
+
+def quantize_linear(p) -> QuantLinear:
+    """PTQ of a linear container {w (in, out)[, b]} (JAX `quantize_linear`):
+    symmetric per output channel, w ~= w_q * w_s."""
+    w = p.w.detach().float()
+    s = (w.abs().amax(0) / 127.0).clamp_min(1e-12)
+    w_q = torch.round(w / s).clamp(-127, 127).to(torch.int8)
+    b = getattr(p, "b", None)
+    return QuantLinear(w_q, s, None if b is None else b.detach().float())
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    if t.shape[dim] == size:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, size - t.shape[dim]]
+    return F.pad(t, pad)
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) int8 @ (k, n) int8 -> (m, n) int32, exact: `torch._int_mm`,
+    through `int_mm_padded` on the card."""
+    return int_mm_padded(a, b) if a.is_cuda else torch._int_mm(a, b)
+
+
+def int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch._int_mm` at the shapes and layout cuBLASLt's int8 product
+    takes on the H100 (m > 16; k, n multiples of 8; b column-major, which
+    it takes at every m, where a row-major b is refused unless m is a
+    multiple of 32): the operands are padded with zeros where needed (zero
+    rows and columns add nothing to the kept sums) and the result sliced
+    back. No shape falls back to a float product."""
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = _pad_to(_pad_to(a, 0, mp), 1, kp)
+    if (kp, np_) != (k, n):
+        b = _pad_to(_pad_to(b, 0, kp), 1, np_)
+    if not b.t().is_contiguous():
+        b = b.t().contiguous().t()
+    return torch._int_mm(a.contiguous(), b)[:m, :n]
+
+
+# f32(1 / 127): XLA compiles JAX's `max|x| / 127.0` into a product with it,
+# so every jitted JAX int8 entry point scales by this constant
+_INV127 = 1.0 / 127.0
+
+
+def linear_int8(p: QuantLinear, x: torch.Tensor) -> torch.Tensor:
+    """JAX `_linear_int8` as XLA compiles it: per-row scales sx =
+    max(max|x| * f32(1/127), 1e-12) (the op-by-op division differs in the
+    last bit of sx for some rows), x rounded half to even and clipped to
+    int8, the int32 product, then acc * sx * w_s + b in f32, in that order,
+    cast to x's dtype."""
+    xf = x.float()
+    sx = (xf.abs().amax(-1, keepdim=True) * _INV127).clamp_min(1e-12)
+    xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+    acc = int_mm(xq.reshape(-1, xq.shape[-1]), p.w_q)
+    y = acc.reshape(*x.shape[:-1], -1).float() * sx * p.w_s
+    if p.b is not None:
+        y = y + p.b
+    return y.to(x.dtype)
+
+
+def _is_linear_node(m: nn.Module, min_in_dim: int) -> bool:
+    """JAX's shape test: nothing but a 2-D float `w` of fan-in at least
+    `min_in_dim` and an optional `b` (LayerNorm, conv and deconv containers
+    fail it: other names, or a 4-D `w`)."""
+    if next(m.children(), None) is not None:
+        return False
+    names = ({n for n, _ in m.named_parameters(recurse=False)}
+             | {n for n, _ in m.named_buffers(recurse=False)})
+    w = getattr(m, "w", None)
+    return (isinstance(w, torch.Tensor) and names <= {"w", "b"}
+            and w.dim() == 2 and w.is_floating_point()
+            and w.shape[0] >= min_in_dim)
+
+
+def quantize_params(module: nn.Module, min_in_dim: int = 64,
+                    dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """A quantized copy of `module` (JAX `quantize_params`): every
+    linear-shaped node (`_is_linear_node`) becomes a `QuantLinear`; the
+    caller's module is left as it is. With `dtype`, the copy is cast first,
+    so the scales come from the rounded weights, as JAX's Predictor
+    quantizes after `cast_params`."""
+    out = copy.deepcopy(module)
+    if dtype is not None:
+        cast_params(out, dtype)
+    if _is_linear_node(out, min_in_dim):
+        return quantize_linear(out)
+
+    def walk(m: nn.Module) -> None:
+        for name, child in m.named_children():
+            if _is_linear_node(child, min_in_dim):
+                setattr(m, name, quantize_linear(child))
+            else:
+                walk(child)
+
+    walk(out)
+    return out
+
+
+def is_quantized(module: nn.Module) -> bool:
+    return any(isinstance(m, QuantLinear) for m in module.modules())
+
+
+def inference_model(model: nn.Module, dtype: torch.dtype, device,
+                    int8: bool = False) -> nn.Module:
+    """The module an inference entry point runs: `model` moved to `device`
+    and cast to `dtype` in place; with `int8`, a quantized copy of it
+    instead (cast first, as JAX's predictor.py:667-676 quantizes after
+    `cast_params`), leaving the caller's module as it is. The flag alone
+    decides: with `int8` a module that `quantize_params` already made is
+    used as it is (one copy shared by many sessions), and without it a
+    quantized module is refused, so that no float path (BRS among them,
+    whose gradients `round` would zero) runs int8 unasked."""
+    if int8 and not is_quantized(model):
+        model = quantize_params(model, dtype=dtype)
+    elif not int8 and is_quantized(model):
+        raise ValueError("a quantized module needs int8=True; pass the "
+                         "float module for a float path")
+    return cast_params(model.to(device), dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -232,6 +393,8 @@ def patch_embed(p, x: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
     gh, gw = h // ph, w // pw
     x = x.reshape(b, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(b, gh * gw, ph * pw * c)
+    if isinstance(p, QuantLinear):         # an int8-quantized patch embed
+        return linear_int8(p, x)
     w = p.w.reshape(ph * pw * c, -1)        # (ph*pw*c, D) or HWIO
     return x @ w.to(x.dtype) + p.b.to(x.dtype)
 

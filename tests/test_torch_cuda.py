@@ -27,7 +27,12 @@ the limits above; a bf16 ViT block's parameter
 gradients on the card vs the CPU within 2e-2 of each gradient's largest
 entry (~5x the measured 4e-3); a tiny f32 train step on the card vs the CPU
 as chip_smoke.py phase 8 (loss 1e-4, gradients 1e-4 x max(max |g|, 1),
-parameters 1e-6 after SGD)."""
+parameters 1e-6 after SGD). The serving slice: the int8 product exact at
+padded and unpadded shapes; the int8 linear bit-identical to the CPU's;
+tiny f32 user-click rounds within 1e-5 of the CPU's (int8: 5e-3, the int8
+session noise of tests/test_torch_quant.py), captured into a CUDA graph;
+RGB-BRS / DistMap-BRS objectives' gradients within 1e-4 of their largest
+entry; chip_smoke.py phase 14's sessions at its tolerances."""
 import dataclasses
 import types
 
@@ -575,3 +580,111 @@ def test_vit_block_bf16_grads_reach_every_parameter(cuda):
 def test_tiny_train_step_cuda_matches_cpu(cuda):
     import chip_smoke
     chip_smoke.phase_train_parity(cuda)
+
+
+# --- the serving slice: int8 products, user clicks, BRS -----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 64, 192), (5, 20, 12), (17, 64, 64),
+                                   (33, 64, 192), (1568, 768, 2304)])
+def test_int_mm_on_the_card_is_exact(cuda, m, k, n):
+    """`nn.int_mm` pads to the shapes cuBLASLt takes and passes it a
+    column-major second operand: exact against an int32 product, for
+    either layout of b (a row-major b is refused by cuBLASLt at most m)."""
+    from pvpuformer_tpu_torch import nn
+    r = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(r.integers(-127, 128, (m, k)).astype(np.int8))
+    b = torch.from_numpy(r.integers(-127, 128, (k, n)).astype(np.int8))
+    want = a.int() @ b.int()
+    for bb in (b, b.t().contiguous().t()):
+        got = nn.int_mm(a.to(cuda), bb.to(cuda))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_int8_linear_card_is_bit_identical_to_cpu(cuda, dt):
+    from pvpuformer_tpu_torch import nn
+    g = torch.Generator().manual_seed(0)
+    q = nn.quantize_params(nn.Linear(768, 2304, g=g), dtype=dt)
+    x = (torch.randn((2, 784, 768), generator=g) * 2).to(dt)
+    want = nn.linear(q, x)
+    assert torch.equal(nn.linear(q.to(cuda), x.to(cuda)).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_user_click_step_captures_without_host_sync(cuda, int8):
+    """A user-click round (tiny config, f32) captures into a CUDA graph:
+    the click comes as device tensors and the round makes no host sync;
+    its state equals the CPU round's."""
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         user_click_step)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+    cfg = PredictorConfig(model=_tiny_config(), target_size=(64, 64),
+                          min_crop_size=32)
+    image = (np.random.default_rng(7).uniform(size=(60, 90, 3)) * 255
+             ).astype(np.uint8)
+    states = []
+    for where in ("cpu", cuda):
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+        pred = Predictor(model, cfg, device=where, int8=int8)
+        pred.set_input(image, np.zeros((60, 90), np.float32))
+        pred.user_click(20.5, 30.5, True)
+        pred.user_click(40.0, 70.0, False)
+        states.append(pred.state)
+    for a, b in zip(*states):
+        if a.dtype == torch.float32:
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                       atol=5e-3 if int8 else 1e-5)
+        else:
+            assert torch.equal(b.cpu(), a)
+    y, x, pos = (torch.tensor(v, device=cuda) for v in (10.0, 12.0, True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        user_click_step(pred.model, cfg, pred.state, y, x, pos)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        user_click_step(pred.model, cfg, pred.state, y, x, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ["rgb", "dmaps"])
+def test_input_brs_objective_card_matches_cpu(cuda, target):
+    """RGB-BRS / DistMap-BRS's value and gradient at a fixed delta (tiny
+    config, f32): the card's attention forward and backward kernels
+    against the CPU's plain versions, within 1e-4 of the gradient's
+    largest entry."""
+    from pvpuformer_tpu_torch.inference import brs
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+    cfg = _tiny_config()
+    r = np.random.default_rng(3)
+    crop = torch.from_numpy(r.uniform(size=(2, 64, 64, 4)).astype(np.float32))
+    pts = torch.full((2, 12, 3), -1.0)
+    pts[:, 0] = torch.tensor([20.0, 30.0, 0.0])
+    pts[:, 6] = torch.tensor([50.0, 50.0, 1.0])
+    nch = 3 if target == "rgb" else 2
+    delta = torch.from_numpy((r.normal(size=64 * 64 * nch) * 0.05
+                              ).astype(np.float32))
+    pos, neg = brs.click_maps(pts, 64, 64)
+    out = []
+    for where in ("cpu", cuda):
+        model = init_vpu(cfg, torch.Generator().manual_seed(1), where)
+        (loss, _), g = brs.value_and_grad(
+            brs._input_objective, model, cfg, crop.to(where), pts.to(where),
+            delta.to(where), pos.to(where), neg.to(where), 1e-3, True, 64, 64,
+            target, argnum=4)
+        out.append((float(loss), g.cpu()))
+    (lc, gc), (lg, gg) = out
+    assert abs(lc - lg) <= 1e-5 * max(1.0, abs(lc))
+    assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+
+
+@pytest.mark.cuda
+def test_serving_parity_cuda_matches_cpu(cuda):
+    import chip_smoke
+    chip_smoke.phase_serving_parity(cuda)

@@ -325,8 +325,10 @@ def test_cli_runs_on_the_card_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--int8"], "not ported yet"), (["--eval-mesh", "4"], "not ported yet"),
-    (["--vis-preds"], "not ported yet"), (["f-BRS-B"], "not ported yet"),
+    (["f-BRS-B", "--int8"], "NoBRS only"),
+    (["--eval-mesh", "4"], "not ported yet"),
+    (["--vis-preds"], "not ported yet"),
+    (["--batched", "2", "f-BRS-B"], "NoBRS only"),
     (["SAM", "--sam-checkpoint", "sam.pth"], "not ported yet"),
     (["--batched", "2", "--prompt-mode", "1"], "clicks only")])
 def test_cli_refuses_what_is_not_ported(argv, message, capsys):

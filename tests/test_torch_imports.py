@@ -35,8 +35,13 @@ import pvpuformer_tpu_torch.recipes.iSegNet.vpu_base448_cocolvis
 import pvpuformer_tpu_torch.recipes.iSegNet.vpu_large448_cocolvis
 import pvpuformer_tpu_torch.recipes.iSegNet.vpu_huge448_cocolvis
 import pvpuformer_tpu_torch.recipes.iSegNet.vpu_tiny_synthetic
+import pvpuformer_tpu_torch.inference.brs
+import pvpuformer_tpu_torch.inference.controller
+import pvpuformer_tpu_torch.serve, pvpuformer_tpu_torch.demo
+import pvpuformer_tpu_torch.demo_widgets
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton',
+                                    'tkinter', 'demo', 'demo_widgets'))
 assert not bad, bad
 print('clean')
 """
