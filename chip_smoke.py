@@ -41,9 +41,14 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      vs on the CPU (plain versions), same port weights: identical clicks,
      IoU within 1e-5;
   5. the main path: ViT-B@448 bf16, seeded random weights, two 20-click
-     sessions through `Predictor`, then 3 clicks with attn_impl="flash";
-     IoUs finite in [0, 1], click counts, and every kernel's launch count
-     equal to the wrapper calls the path makes;
+     sessions through `Predictor` (on the card its rounds are replayed
+     from a captured round, inference/graphs.py), then 3 clicks with
+     attn_impl="flash"; IoUs finite in [0, 1], click counts, and every
+     kernel's launch count equal to the wrapper calls the path makes; then
+     the eager `click_scan` against `Predictor.run_clicks` from one state,
+     bit-identical, with the p50 ms per click of both and the replayed
+     session's device time; `python -m pvpuformer_tpu_torch.bench` and
+     `--int8` as processes, each ending in its JSON line;
   6. prompt parity: tiny f32 box / scribble sessions, all four (prompt_mode,
      as_multi_prompts) variants with deterministic prompts, CUDA vs the CPU:
      identical clicks, IoU within 1e-5;
@@ -53,7 +58,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      wrapper calls the path makes, counted per variant; one more click of
      each variant and of the click path under torch's sync debug mode, and
      one more captured into a CUDA graph (a capture fails on any host
-     sync);
+     sync); per variant 20 rounds of the eager `click_scan` against
+     `Predictor.run_clicks`, bit-identical, timed as in phase 5;
   8. training parity: two f32 `train_step`s of the tiny config (batch 2,
      one step with a box round) on CUDA vs on the CPU, the same draws:
      loss, every gradient and the updated parameters within tolerance;
@@ -67,8 +73,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      syncs of one more step under torch's sync debug mode;
  10. evaluation parity: `evaluate_dataset` and `BatchedEvaluator` (B = 2,
      the last chunk padded) on Synthetic(3, (64, 64)), 5 clicks, tiny
-     config f32, CUDA vs the CPU: identical clicks, IoU within 1e-5,
-     identical NoC lists; on each device batched = sequential;
+     config f32, for the click path and the four prompt variants, CUDA vs
+     the CPU: identical clicks, IoU within 1e-5, identical NoC lists; on
+     each device batched = sequential;
  11. batched evaluation: ViT-B@448 bf16, seeded random weights, 21
      objects (16 of Synthetic 448 x 448, 5 of 300 x 500: two canvas
      buckets, padded chunks) x 20 clicks, through sequential
@@ -78,7 +85,12 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      LN+MLP, one min-plus); curves finite in [0, 1] of the right length;
      the share of sessions whose clicks equal the sequential run's and the
      max |dIoU| (reported, not gated: bf16 products may round by the
-     batch); one `batched_click_step` captured into a CUDA graph; the EDT
+     batch); one `batched_click_step` captured into a CUDA graph; at B = 8
+     the click path, a box and a scribble variant (multi-prompt) with
+     every chunk replayed from the captured round against the eager
+     `batched_click_scan`: curves and click slots bit-identical, clicks/s
+     of both (and, for the prompt variants, of sequential sessions, with
+     the share of sessions whose clicks equal theirs, reported); the EDT
      pass-1 forms' times at B = 16's masks;
  12. presets: one 3-click bf16 session each of ViT-L@448 and ViT-H@448,
      random weights, launch counts equal to the wrapper calls;
@@ -113,8 +125,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      commands on stdin, which must write its mask; 10 user-click rounds of
      the bf16 and the int8 `Predictor` (p50 ms per round, the largest IoU
      difference between them, launches per round: attention and LN+MLP
-     12 / 12 in bf16, 12 / 0 in int8) and one more `user_click_step` of
-     each captured into a CUDA graph; f-BRS-B and RGB-BRS, 3 oracle clicks
+     12 / 12 in bf16, 12 / 0 in int8; the replayed rounds' masks and IoUs
+     bit-identical to the eager `user_click_step`'s) and one more
+     `user_click_step` of each captured into a CUDA graph; f-BRS-B and
+     RGB-BRS, 3 oracle clicks
      each at max_iters 20 (ms and functor evaluations per click; launches
      per click: one min-plus, 12 attention and LN+MLP forwards per full
      forward, 12 attention and LN+MLP backwards per RGB-BRS evaluation);
@@ -126,13 +140,15 @@ phases 5, 7, 9 and 15), the card's name and power limit, and, last,
 
 instead runs phases 1-2 and then profiles ViT-B@448 bf16 clicks of the
 click path and of the four prompt variants, and batched click rounds at B
-= 8 and 16, with torch.profiler (CPU + CUDA activities): device time per
-round by kernel group, launches per round, the device busy share under
-the profiler, and the host-clock median of unprofiled rounds beside it.
+= 8 and 16, each eager and replayed from its captured round, with
+torch.profiler (CPU + CUDA activities): device time per round by kernel
+group, launches per round, the device busy share under the profiler, and
+the host-clock median of unprofiled rounds beside it.
 
 No phase's depth was cut for time: the whole script, the build included,
-takes about 185 s on an NVIDIA H100 80GB HBM3 at 700 W (phases 14-15
-about 35 s of it), of its 1200 s limit.
+takes about 290 s on an NVIDIA H100 80GB HBM3 at 700 W (phases 14-15
+about 35 s of it, phase 5's two bench processes about 65 s), of its 1200 s
+limit.
 """
 from __future__ import annotations
 
@@ -825,7 +841,8 @@ def phase_main(dev, card: str):
     """Phase 5: ViT-B@448 bf16 click sessions through the kernels."""
     import torch
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
-                                                         PredictorConfig)
+                                                         PredictorConfig,
+                                                         init_session)
     from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
     mcfg = vpu_base_config(dtype=torch.bfloat16)
     model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
@@ -884,7 +901,32 @@ def phase_main(dev, card: str):
     if total != want_total or counts != want:
         raise AssertionError("a kernel was launched a different number of "
                              "times than the main path calls its wrapper")
+    state0 = init_session(image, gt, mcfg.num_max_points, (448, 448), dev)
+    _replay_vs_eager(pred, state0, CLICKS, "click path", card)
+    phase_bench()
     return total, model
+
+
+def phase_bench():
+    """Phase 5: `python -m pvpuformer_tpu_torch.bench [--int8]`, each a
+    process on the card: its last line one JSON object with the three keys
+    and the metric's name."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra, suffix in (([], ""), (["--int8"], "_int8")):
+            out, secs = _subprocess(["pvpuformer_tpu_torch.bench", *extra],
+                                    tmp, "the bench")
+            lines = out.strip().splitlines()
+            line = json.loads(lines[-1])
+            want = f"p50_per_click_latency_ms_vitb448_gpu{suffix}"
+            ok = (set(line) == {"metric", "value", "unit"}
+                  and line["metric"] == want and line["unit"] == "ms"
+                  and np.isfinite(line["value"]) and line["value"] > 0)
+            _log(f"  python -m pvpuformer_tpu_torch.bench {' '.join(extra)}"
+                 f" in {secs:.1f} s: {lines[-2] if len(lines) > 1 else ''}"
+                 f"\n  {json.dumps(line)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the bench's last line: {lines[-1]}")
 
 
 def _wrappers():
@@ -938,7 +980,8 @@ def phase_prompts(dev, card: str, model):
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
                                                          PredictorConfig,
                                                          _prompt_noise,
-                                                         click_step)
+                                                         click_step,
+                                                         init_session)
 
     mcfg = model.cfg
     rng = np.random.default_rng(0)
@@ -987,6 +1030,9 @@ def phase_prompts(dev, card: str, model):
                                  f"the wrappers {want} times")
         for k, v in counts.items():
             total[k] += v
+        _replay_vs_eager(pred, init_session(image, gt, mcfg.num_max_points,
+                                            (448, 448), dev), CLICKS, name,
+                         card)
         _no_host_sync(pred)
         preds.append(pred)
     # the click path (prompt_mode 0) too
@@ -1025,6 +1071,78 @@ def _capture(step, side):
     torch.cuda.current_stream().wait_stream(side)
     del graph
     torch.cuda.synchronize()
+
+
+def _replay_vs_eager(pred, state0, clicks: int, label: str, card: str):
+    """The eager `click_scan` and `Predictor.run_clicks` (rounds replayed
+    from a captured round, inference/graphs.py) from one state with the
+    same prompt draws: every state field and the IoU curve bit-identical,
+    or raise. Then, for each, the p50 ms per click on the host clock (one
+    round and its IoU read) and the CUDA-event ms per click of a whole
+    session queued back to back (for the replayed session the host stays
+    ahead, so that is its device time)."""
+    import torch
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference.predictor import (NOISE_SEED,
+                                                         _as_batch,
+                                                         click_scan,
+                                                         click_step)
+
+    def gen():
+        return torch.Generator().manual_seed(NOISE_SEED)
+
+    def restart():
+        pred.state = state0
+        pred.gen.manual_seed(NOISE_SEED)
+
+    with torch.no_grad():
+        est, eious = click_scan(pred.model, pred.cfg, state0, clicks, gen())
+    restart()
+    rious = pred.run_clicks(clicks)
+    same = (np.array_equal(eious.cpu().numpy(), rious)
+            and all(torch.equal(a, b) for a, b in zip(est, pred.state)))
+    eager_ms, replay_ms = [], []
+    st, g = state0, gen()
+    for _ in range(clicks):
+        t = time.perf_counter()
+        with torch.no_grad():
+            st, iou = click_step(pred.model, pred.cfg, st, g)
+        float(iou)
+        eager_ms.append((time.perf_counter() - t) * 1e3)
+    restart()
+    for _ in range(clicks):
+        t = time.perf_counter()
+        pred.next_click()
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+
+    def events(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / clicks
+    ev_eager = events(lambda: click_scan(pred.model, pred.cfg, state0,
+                                         clicks, gen()))
+    ev_replay = events(lambda: graphs.click_rounds(
+        pred.model, pred.cfg, _as_batch(state0), clicks, gen()))
+    out = {"eager_p50_ms": float(np.median(eager_ms)),
+           "replay_p50_ms": float(np.median(replay_ms)),
+           "eager_event_ms": ev_eager, "replay_device_ms": ev_replay}
+    _log(f"  {label}: {clicks} replayed rounds against the eager click_scan"
+         f" from one state: {'bit-identical' if same else 'DIFFER'} (click "
+         f"slots, probabilities, IoU curve); p50 ms per click eager "
+         f"{out['eager_p50_ms']:.3f}, replayed {out['replay_p50_ms']:.3f}; "
+         f"CUDA-event ms per click of a session: eager "
+         f"{ev_eager:.3f}, replayed {ev_replay:.3f} (device time) ({card})")
+    if not same:
+        raise AssertionError(f"{label}: replay {rious} eager "
+                             f"{eious.cpu().numpy()}\nreplay points "
+                             f"{pred.state.points} eager {est.points}")
+    return out
 
 
 def _no_host_sync(pred):
@@ -1361,24 +1479,36 @@ def _recording_predictor(model, cfg, device):
 
 
 @contextlib.contextmanager
-def _batched_points(dataset, bev):
-    """Collect the final click slots of every batched_click_scan that
-    `bev.evaluate(dataset, ...)` runs; the yielded list is filled, after
-    the block, with one (2N, 3) tensor per object in dataset order (the
-    chunks' padding dropped). The evaluator's order: canvas bucket by
-    bucket, chunk by chunk."""
-    from pvpuformer_tpu_torch.inference import batched
-    log, out, scan = [], [], batched.batched_click_scan
-
-    def recorded(*args):
-        states, ious = scan(*args)
-        log.append(states.points)
-        return states, ious
-    batched.batched_click_scan = recorded
+def _patched(module, name, wrap):
+    """module.name replaced by wrap(module.name) inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
     try:
-        yield out
+        yield
     finally:
-        batched.batched_click_scan = scan
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def _batched_points(dataset, bev):
+    """Collect the final click slots of every chunk that
+    `bev.evaluate(dataset, ...)` runs (`batched.batched_click_scan` on the
+    CPU, `graphs.click_rounds` on the card); the yielded list is filled,
+    after the block, with one (2N, 3) tensor per object in dataset order
+    (the chunks' padding dropped). The evaluator's order: canvas bucket by
+    bucket, chunk by chunk."""
+    from pvpuformer_tpu_torch.inference import batched, graphs
+    log, out = [], []
+
+    def record(scan):
+        def recorded(*args):
+            states, ious = scan(*args)
+            log.append(states.points)
+            return states, ious
+        return recorded
+    with _patched(batched, "batched_click_scan", record), \
+            _patched(graphs, "click_rounds", record):
+        yield out
     groups, k = {}, 0
     for i in range(len(dataset)):
         sample = dataset.get_sample(i)
@@ -1397,6 +1527,55 @@ def _batched_points(dataset, bev):
                              f"order has {len(order)}")
     by_index = {i: p for i, p in zip(order, slots) if i is not None}
     out += [by_index[i] for i in sorted(by_index)]
+
+
+def _variant(mode: int, multi: bool) -> str:
+    return ("clicks" if mode == 0 else
+            f"mode {mode} {'multi' if multi else 'points'}")
+
+
+def _chunk_runs(ds, bev, clicks: int):
+    """`bev.evaluate(ds)` twice on the card: its chunks replayed from the
+    captured round (`graphs.click_rounds`), counting each chunk's replays,
+    then with the eager `batched_click_scan` in graphs.click_rounds' place.
+    Returns ({"replayed" / "eager": (curves, click slots per object,
+    stats, launch counts)}, replays per chunk of the replayed run)."""
+    from pvpuformer_tpu_torch.inference import batched, graphs
+    eager_scan = batched.batched_click_scan
+    replays, per_chunk = [0], []
+
+    def counting(replay):
+        def counted(self):
+            replays[0] += 1
+            return replay(self)
+        return counted
+
+    def per_chunk_count(scan):
+        def run(*args):
+            n0 = replays[0]
+            out = scan(*args)
+            per_chunk.append(replays[0] - n0)
+            return out
+        return run
+
+    runs = {}
+    for name in ("replayed", "eager"):
+        with contextlib.ExitStack() as stack:
+            if name == "replayed":
+                stack.enter_context(_patched(graphs._Round, "replay",
+                                             counting))
+                stack.enter_context(_patched(graphs, "click_rounds",
+                                             per_chunk_count))
+            else:
+                stack.enter_context(_patched(graphs, "click_rounds",
+                                             lambda scan: eager_scan))
+            points = stack.enter_context(_batched_points(ds, bev))
+            _zero_counts()
+            curves, _, stats = bev.evaluate(ds, max_clicks=clicks,
+                                            max_iou_thr=0.95)
+            counts = _counts()
+        runs[name] = (curves, points, stats, counts)
+    return runs, per_chunk
 
 
 def _click_order(points):
@@ -1426,19 +1605,26 @@ def _curves_ok(curves, n_objects, max_clicks, thr=0.95):
 def phase_eval_parity(dev):
     """Phase 10: `evaluate_dataset` and `BatchedEvaluator` (B = 2, so the
     last chunk is padded) on Synthetic(3, (64, 64)), tiny config f32, on
-    CUDA and on the CPU, the same port weights: identical click sequences,
-    IoU within 1e-5, identical NoC lists; on each device batched =
-    sequential (identical clicks, IoU within 1e-5)."""
+    CUDA and on the CPU, the same port weights, for the click path and the
+    four prompt variants (random prompts): identical click sequences, IoU
+    within 1e-5, identical NoC lists; on each device batched = sequential
+    (identical clicks, IoU within 1e-5)."""
+    from pvpuformer_tpu_torch.inference.predictor import PredictorConfig
+    for mode, multi in [(0, True)] + list(PROMPT_VARIANTS):
+        _log(f"  {_variant(mode, multi)}:")
+        _eval_parity(dev, PredictorConfig(
+            model=tiny_config(), target_size=(64, 64), min_crop_size=32,
+            prompt_mode=mode, as_multi_prompts=multi))
+
+
+def _eval_parity(dev, cfg):
     import torch
     from pvpuformer_tpu_torch.inference.batched import BatchedEvaluator
     from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
     from pvpuformer_tpu_torch.inference.evaluation import (compute_noc_metric,
                                                            evaluate_dataset)
-    from pvpuformer_tpu_torch.inference.predictor import PredictorConfig
     from pvpuformer_tpu_torch.models.vpu import init_vpu
 
-    cfg = PredictorConfig(model=tiny_config(), target_size=(64, 64),
-                          min_crop_size=32)
     ds = SyntheticDataset(n_samples=3, hw=(64, 64))
     out = {}
     for where in ("cpu", dev):
@@ -1600,6 +1786,59 @@ def phase_batched(dev, card: str):
                          side)
             _log(f"  one batched_click_step at B={b} was captured into a "
                  f"CUDA graph (not replayed): no synchronizing call")
+    # chunks replayed against the eager batched_click_scan at B = 8: the
+    # click path, a box and a scribble variant (multi-prompt protocol)
+    b = EVAL_BATCHES[0]
+    n_chunks = sum(-(-n // b) for n, _, _ in parts)
+    for mode in (0, 1, 2):
+        cfg_v = dataclasses.replace(pcfg, prompt_mode=mode)
+        name = _variant(mode, True)
+        runs, per_chunk = _chunk_runs(
+            ds, BatchedEvaluator(model, cfg_v, b, device=dev), EVAL_CLICKS)
+        (rc, rp, rs, rn), (ec, ep, es, en) = runs["replayed"], runs["eager"]
+        _curves_ok(rc, n_obj, EVAL_CLICKS)
+        n_cc, n_cm, n_mp = PROMPT_VARIANTS.get((mode, True), (0, 0, 1))
+        rounds = n_chunks * EVAL_CLICKS
+        want = {k: 0 for k in rn}
+        want.update(fused_attention=depth * rounds,
+                    fused_ln_mlp=depth * rounds,
+                    minplus_rows=n_mp * rounds, cc_labels=n_cc * rounds,
+                    component_max=n_cm * rounds)
+        same = (len(rc) == len(ec) == len(rp) == len(ep) == n_obj
+                and all(np.array_equal(x, y) for x, y in zip(rc, ec))
+                and all(torch.equal(x, y) for x, y in zip(rp, ep)))
+        every = (len(per_chunk) == n_chunks
+                 and all(k >= EVAL_CLICKS - 1 for k in per_chunk))
+        res = {"replayed_clicks_per_sec": rs["clicks_per_sec"],
+               "eager_clicks_per_sec": es["clicks_per_sec"],
+               "replays_per_chunk": per_chunk,
+               "launches_per_round": {k: v / rounds for k, v in rn.items()
+                                      if v}}
+        if mode:
+            seq_pred = _recording_predictor(model, cfg_v, dev)
+            seq, seq_s = evaluate_dataset(ds, seq_pred, max_iou_thr=0.95,
+                                          max_clicks=EVAL_CLICKS)
+            seq_clk = torch.stack(seq_pred.log).cpu()
+            res.update(
+                sequential_clicks_per_sec=sum(map(len, seq)) / seq_s,
+                same_clicks_share=float(np.mean(
+                    [torch.equal(c, q) for c, q in zip(rp, seq_clk)])),
+                max_abs_diou=max(float(np.abs(
+                    x[:min(len(x), len(q))] - q[:min(len(x), len(q))]).max())
+                    for x, q in zip(rc, seq)))
+        _log(f"  {name} at B={b}, {n_chunks} chunks: replayed "
+             f"{'=' if same else '!='} eager batched_click_scan (curves and "
+             f"click slots, bit for bit); every chunk replayed the captured "
+             f"round ({per_chunk} replays of {EVAL_CLICKS} rounds) "
+             f"{'ok' if every else 'FAIL'}; {json.dumps(res)} ({card})")
+        if not (same and every):
+            raise AssertionError(f"{name} at B={b}: replayed chunks differ "
+                                 f"from eager ones or did not replay")
+        if not rn == en == want:
+            raise AssertionError(f"{name} at B={b}: launches replayed {rn}, "
+                                 f"eager {en}, the path calls the wrappers "
+                                 f"{want} times")
+        summary[f"{name} replay vs eager B={b}"] = res
     # the batched mode's pass-1 form (resolve_batched_cfg: "dense") beside
     # the single-session "scan" form, bit-identical, at B = 16's masks
     masks = torch.rand((2 * EVAL_BATCHES[-1], 448, 448), device=dev) > 0.5
@@ -1723,14 +1962,17 @@ def _profile_rounds(step, card: str, name: str) -> dict:
 
 
 def profile_paths(dev, card: str):
-    """ViT-B@448 bf16: where a click round's device time goes, per path:
-    the click path and the four prompt variants one session at a time,
-    and batched click sessions at B = 8 and 16 (per round of B clicks)."""
+    """ViT-B@448 bf16: where a click round's device time goes, per path,
+    eager and replayed from the captured round (inference/graphs.py): the
+    click path and the four prompt variants one session at a time, and
+    batched click sessions at B = 8 and 16 (per round of B clicks)."""
     import torch
+    from pvpuformer_tpu_torch.inference import graphs
     from pvpuformer_tpu_torch.inference.batched import resolve_batched_cfg
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
                                                          PredictorConfig,
                                                          batched_click_step,
+                                                         click_step,
                                                          init_session,
                                                          stack_states)
     from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
@@ -1749,7 +1991,15 @@ def profile_paths(dev, card: str):
             model=mcfg, target_size=(448, 448), with_flip=True,
             prompt_mode=mode, as_multi_prompts=multi), device=dev)
         pred.set_input(image, gt)
-        out[name] = _profile_rounds(pred.next_click, card, name)
+
+        @torch.no_grad()
+        def eager(pred=pred):
+            pred.state, iou = click_step(pred.model, pred.cfg, pred.state,
+                                         pred.gen)
+            return float(iou)                       # the host read
+        out[name + " eager"] = _profile_rounds(eager, card, name + " eager")
+        out[name + " replayed"] = _profile_rounds(pred.next_click, card,
+                                                  name + " replayed")
     bcfg = resolve_batched_cfg(PredictorConfig(
         model=mcfg, target_size=(448, 448), with_flip=True))
     for b in EVAL_BATCHES:
@@ -1760,8 +2010,14 @@ def profile_paths(dev, card: str):
         def step():
             box[0], iou = batched_click_step(model, bcfg, box[0])
             return iou.cpu()                        # the host read
-        out[f"batched B={b}"] = _profile_rounds(step, card,
-                                                f"batched B={b} (per round)")
+
+        def replayed():
+            box[0], iou = graphs.click_rounds(model, bcfg, box[0], 1)
+            return iou.cpu()
+        out[f"batched B={b} eager"] = _profile_rounds(
+            step, card, f"batched B={b} eager (per round)")
+        out[f"batched B={b} replayed"] = _profile_rounds(
+            replayed, card, f"batched B={b} replayed (per round)")
     return out
 
 
@@ -2222,10 +2478,11 @@ def _serve_session(base, image, script, out, key):
 
 def _user_session(pred, image, gt, clicks):
     """User clicks through a Predictor: (IoUs against gt, ms per round,
-    launch counts per round, each read right after its round)."""
+    launch counts per round, each read right after its round, and each
+    round's probabilities)."""
     import torch
     pred.set_input(image, gt)
-    ious, ms, counts = [], [], []
+    ious, ms, counts, probs = [], [], [], []
     for y, x, pos in clicks:
         _zero_counts()
         t = time.perf_counter()
@@ -2233,7 +2490,26 @@ def _user_session(pred, image, gt, clicks):
         ms.append((time.perf_counter() - t) * 1e3)
         torch.cuda.synchronize()
         counts.append(_counts())
-    return np.asarray(ious), ms, counts
+        probs.append(pred.state.prev_probs)
+    return np.asarray(ious), ms, counts, probs
+
+
+def _user_eager(pred, image, gt, clicks):
+    """The same user clicks through the eager `user_click_step` from the
+    state `pred.set_input` makes: (IoUs, each round's probabilities)."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import user_click_step
+    pred.set_input(image, gt)
+    st, dev, ious, probs = pred.state, pred.device, [], []
+    for y, x, pos in clicks:
+        with torch.no_grad():
+            st, iou = user_click_step(
+                pred.model, pred.cfg, st, torch.tensor(float(y), device=dev),
+                torch.tensor(float(x), device=dev),
+                torch.tensor(bool(pos), device=dev))
+        ious.append(float(iou))
+        probs.append(st.prev_probs)
+    return np.asarray(ious), probs
 
 
 def _round_counts(counts, want, what):
@@ -2354,7 +2630,11 @@ def phase_serving(dev, card: str):
     for name, int8 in (("bf16", False), ("int8", True)):
         pred = Predictor(model, pcfg, device=dev, int8=int8)
         _user_session(pred, images[0], gt, USER_CLICKS[:2])      # warm-up
-        ious, ms, counts = _user_session(pred, images[0], gt, USER_CLICKS)
+        ious, ms, counts, probs = _user_session(pred, images[0], gt,
+                                                USER_CLICKS)
+        e_ious, e_probs = _user_eager(pred, images[0], gt, USER_CLICKS)
+        same = np.array_equal(ious, e_ious) and all(
+            torch.equal(a, b) for a, b in zip(probs, e_probs))
         want = {"fused_attention": depth,
                 "fused_ln_mlp": 0 if int8 else depth}
         _round_counts(counts, want, f"{name} user click")
@@ -2371,9 +2651,14 @@ def phase_serving(dev, card: str):
         res[name] = ious, ms
         _log(f"  {name} user clicks: p50 {np.median(ms):.2f} ms per round "
              f"over {len(ms)} rounds ({card}); IoUs "
-             f"{np.round(ious, 4).tolist()}; launches per round {want}; one "
-             f"more user_click_step captured into a CUDA graph (no host "
-             f"sync)")
+             f"{np.round(ious, 4).tolist()}; launches per round {want}; "
+             f"the replayed rounds' masks and IoUs "
+             f"{'bit-identical to' if same else 'DIFFER from'} the eager "
+             f"user_click_step's; one more user_click_step captured into a "
+             f"CUDA graph (no host sync)")
+        if not same:
+            raise AssertionError(f"{name} user clicks: replayed {ious}, "
+                                 f"eager {e_ious}")
         del pred
     dious = float(np.abs(res["int8"][0] - res["bf16"][0]).max())
     _log(f"  int8 against bf16 over the same {len(USER_CLICKS)} user clicks:"
@@ -2450,6 +2735,7 @@ def main() -> int:
          f"{mm.allow_tf32}, allow_bf16_reduced_precision_reduction "
          f"{mm.allow_bf16_reduced_precision_reduction}")
 
+    from pvpuformer_tpu_torch.inference import graphs
     from pvpuformer_tpu_torch.ops import _build
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -2473,6 +2759,7 @@ def main() -> int:
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
+    graphs.clear()                  # the captured rounds' memory
     torch.cuda.empty_cache()
     _log("[8/15] training parity, tiny config f32")
     phase_train_parity(dev)
@@ -2490,6 +2777,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     _log("[12/15] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     phase_presets(dev, smi)
+    graphs.clear()
     torch.cuda.empty_cache()
     _log("[13/15] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "

@@ -137,21 +137,25 @@ def synth_boxes(gt: torch.Tensor, fn: torch.Tensor, fp: torch.Tensor,
     (B, 4) int32 jitter draws, required when `jitter`. Returns (B, 5) int32
     [x_center, y_center, width, height, slot].
 
-    `n_dyn` (tensor or int, default N) is the reference's per-click half
-    capacity: slots are searched among the first n_dyn of a half, and the
-    positive slot is hard-coded to n_dyn - 1 (trainer.py:1087)."""
+    `n_dyn` (tensor or int, default N; one value or one per item) is the
+    reference's per-click half capacity: slots are searched among the
+    first n_dyn of a half, and the positive slot is hard-coded to n_dyn - 1
+    (trainer.py:1087)."""
     b, twon, _ = points.shape
     n = twon // 2
     dev = points.device
     # the default stays a Python int: a device tensor made from a host
     # int is a copy that syncs the host (one per box round in training)
-    cap = n if n_dyn is None else torch.as_tensor(n_dyn, dtype=torch.int32,
-                                                  device=dev)
+    if n_dyn is None:
+        cap = lim = n
+    else:
+        cap = torch.as_tensor(n_dyn, dtype=torch.int32, device=dev).expand(b)
+        lim = cap[:, None]
     orders = points[:, :, 2]
     slots = torch.arange(n, device=dev)
 
     def first_free(half_orders):
-        free = (half_orders < 0) & (slots < cap)
+        free = (half_orders < 0) & (slots < lim)
         return torch.where(free.any(-1), _first_true(free),
                            cap - 1).to(torch.int32)
 

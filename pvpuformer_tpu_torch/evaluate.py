@@ -106,8 +106,6 @@ def parse_args(argv=None):
                 "int8 rounding has no useful gradient)")
     if args.batched > 0 and not nobrs:
         p.error("--batched runs NoBRS only")
-    if args.batched > 0 and args.prompt_mode != 0:
-        p.error("--batched runs clicks only (--prompt-mode 0)")
     return args
 
 

@@ -4,32 +4,42 @@
 B sessions of one canvas shape run as one batch: every click round is one
 `batched_click_step` over the stacked states (`predictor.stack_states`), so
 the oracle's EDT is one min-plus launch for all B sessions and the flip-TTA
-forward runs at batch 2B with the launches of one session. Sessions are
-grouped by canvas bucket; each group's last chunk is padded to the batch
-size with copies of its last session, whose results are dropped.
+forward runs at batch 2B with the launches of one session. Every prompt
+mode runs so; each session draws its own sequential session's prompt
+noise. Sessions are grouped by canvas bucket; each group's last chunk is
+padded to the batch size with copies of its last session, whose results
+are dropped. On the card a chunk's rounds are replayed from a captured
+round (`graphs.click_rounds`); elsewhere they run eagerly
+(`batched_click_scan`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.vpu import VPUModel
 from ..nn import inference_model, resolve_device
-from .predictor import (PredictorConfig, SessionState, batched_click_step,
-                        init_session, stack_states)
+from . import graphs
+from .predictor import (NOISE_SEED, PredictorConfig, SessionState,
+                        batched_click_step, init_session, stack_states)
 
 
 def batched_click_scan(model: VPUModel, cfg: PredictorConfig,
-                       states: SessionState, num_clicks: int):
+                       states: SessionState, num_clicks: int,
+                       gen: Optional[torch.Generator] = None):
     """`num_clicks` rounds of a batch of sessions. Returns (final states,
-    ious (B, num_clicks))."""
+    ious (B, num_clicks)). The prompt draws of all rounds come from `gen`
+    (None: one generator seeded NOISE_SEED for the scan), as each session's
+    own `click_scan` draws them."""
+    if gen is None:
+        gen = torch.Generator().manual_seed(NOISE_SEED)
     ious = []
     for _ in range(num_clicks):
-        states, iou = batched_click_step(model, cfg, states)
+        states, iou = batched_click_step(model, cfg, states, gen)
         ious.append(iou)
     return states, torch.stack(ious, 1)
 
@@ -79,6 +89,8 @@ class BatchedEvaluator:
                 order += 1
 
         curves: List = [None] * order
+        scan = (graphs.click_rounds if graphs.replayed(self.device)
+                else batched_click_scan)
         start = time.time()
         total_clicks = 0
         for items in groups.values():
@@ -87,8 +99,8 @@ class BatchedEvaluator:
                 pad = self.batch_size - len(chunk)
                 states = stack_states([st for _, st in chunk]
                                       + [chunk[-1][1]] * pad)
-                _, ious = batched_click_scan(self.model, self.cfg, states,
-                                             max_clicks)
+                _, ious = scan(self.model, self.cfg, states, max_clicks,
+                               torch.Generator().manual_seed(NOISE_SEED))
                 ious = ious.cpu().numpy()
                 for (idx, _), curve in zip(chunk, ious):
                     over = np.nonzero(curve[min_clicks - 1:] >= max_iou_thr)[0]

@@ -17,7 +17,9 @@ one. `prompt_mode` 1 / 2 add box / scribble prompts
 synthesised on the device from the ROI-cropped gt and error masks, in both
 `as_multi_prompts` protocols; their random draws come from a CPU
 `torch.Generator` (`_prompt_noise`), so a session draws the same noise on
-the CPU and on the card.
+the CPU and on the card, alone or in a batch. These eager functions are
+the definition and the CPU path; on the card `Predictor` replays captured
+rounds (`graphs`).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ..models.vpu import VPUConfig, VPUModel, vpu_forward
 from ..nn import inference_model, resolve_device
 from ..ops.edt import next_click_from_error, squared_edt_pair
 from ..ops.resize import roi_crop_resize, roi_paste_back
+from . import graphs
 
 SCRIBBLE_CTRL = 10       # synth_scribbles' control points (prompt_sim.py:470)
 SCRIBBLE_POINTS = 7      # cal_scribble_inference's num_p (trainer.py:921)
@@ -325,6 +328,7 @@ def _append_error_click(pred: torch.Tensor, gt: torch.Tensor,
     b, twon, _ = points.shape
     n = twon // 2
     w = pred.shape[-1]
+    n_dyn = n_dyn.expand(b)                     # one value, or one per item
     gtm = gt > 0.5
     fn = gtm & (pred < pred_thresh)
     fp = ~gtm & (pred > pred_thresh)
@@ -342,7 +346,8 @@ def _append_error_click(pred: torch.Tensor, gt: torch.Tensor,
         flat = torch.argmax(score.view(b, -1), -1)
     orders = points[:, :, 2]
     half = torch.where(is_pos[:, None], orders[:, :n], orders[:, n:])
-    free = (half < 0) & (torch.arange(n, device=points.device) < n_dyn)
+    free = (half < 0) & (torch.arange(n, device=points.device)
+                         < n_dyn[:, None])
     slot = torch.where(free.any(1), _first_true(free), n_dyn - 1)
     slot = torch.where(is_pos, slot, slot + n)
     rows = torch.stack([(flat // w).float(), (flat % w).float(),
@@ -399,23 +404,28 @@ def _box_prompt_one(gtb: torch.Tensor, noise: Dict[str, torch.Tensor],
 
 def _rewrite_points_box(net_points: torch.Tensor, gtb: torch.Tensor,
                         noise: Dict[str, torch.Tensor], n_dyn: torch.Tensor,
-                        first: torch.Tensor, det: bool) -> torch.Tensor:
+                        first: torch.Tensor, det: bool,
+                        sessions: int = 1) -> torch.Tensor:
     """as_prompt_type=1 points rewrite (trainer.py:963-1009): on the first
     click the clicks are DISCARDED and replaced by [centre (+, order 1) |
     corner0 (-, order 0), corner1 (-, order 2)]; afterwards the three
     pseudo-clicks follow the live clicks (centre at positive slot n_dyn,
     corners at negative slots n_dyn, n_dyn + 1) with orders (max + 2,
-    max + 1, max + 3)."""
+    max + 1, max + 3). `first` and `n_dyn` are one value or one per item.
+    The items are the forward batch of `sessions` sessions, [B originals;
+    B flips]: a session keeps its clicks when no item of its own flip pair
+    has a box (JAX's `jnp.any(ok)` under its per-session vmap)."""
     b, twon, _ = net_points.shape
     n = twon // 2
+    first, n_dyn = first.expand(b), n_dyn.expand(b)
     bp, ok = _box_prompt_one(gtb, noise, det)
     bpf = bp.float()
     order = _next_order(net_points)
     o_center = torch.where(first, 1.0, order + 1.0)
     o_c0 = torch.where(first, 0.0, order)
     o_c1 = torch.where(first, 2.0, order + 2.0)
-    base = torch.where(first, -1.0, net_points)
-    idx = torch.where(first, 0, n_dyn).expand(b)
+    base = torch.where(first[:, None, None], -1.0, net_points)
+    idx = torch.where(first, 0, n_dyn)
 
     def put(pts, at, row):
         return _set_rows(pts, at, torch.where(ok[:, None], row,
@@ -424,7 +434,8 @@ def _rewrite_points_box(net_points: torch.Tensor, gtb: torch.Tensor,
     pts = put(base, idx, torch.stack([bpf[:, 4], bpf[:, 5], o_center], -1))
     pts = put(pts, idx + n, torch.stack([bpf[:, 0], bpf[:, 1], o_c0], -1))
     pts = put(pts, idx + n + 1, torch.stack([bpf[:, 2], bpf[:, 3], o_c1], -1))
-    return torch.where(ok.any(), pts, net_points)
+    any_ok = ok.view(-1, sessions).any(0).repeat(b // sessions)
+    return torch.where(any_ok[:, None, None], pts, net_points)
 
 
 def _scribble_points_one(masks: torch.Tensor, noise: Dict[str, torch.Tensor],
@@ -461,16 +472,19 @@ def _rewrite_points_scribble(net_points: torch.Tensor, gtb: torch.Tensor,
     """as_prompt_type=2 points rewrite (trainer.py:1011-1041): the scribble
     CONTROL points become positive pseudo-clicks, replacing the clicks on
     the first click (orders 0..K-1), after them otherwise (positive slots
-    n_dyn.., orders max + 1 + p); invalid rows are compacted away."""
-    twon = net_points.shape[1]
+    n_dyn.., orders max + 1 + p); invalid rows are compacted away.
+    `first` and `n_dyn` are one value or one per item."""
+    b, twon, _ = net_points.shape
+    first, n_dyn = first.expand(b), n_dyn.expand(b)
     masks = connected_regions_mask_batch(gtb)      # max_connected_regions
     rows, cols, valid = _scribble_points_one(masks, noise, det)
     valid = valid & gtb.any(-1).any(-1)[:, None]
     rank = torch.cumsum(valid.to(torch.int32), 1) - 1
     o = (torch.where(first, 0.0, _next_order(net_points))[:, None]
          + rank.float())
-    slots = torch.where(valid, torch.where(first, 0, n_dyn) + rank, twon)
-    base = torch.where(first, -1.0, net_points)
+    slots = torch.where(valid, torch.where(first, 0, n_dyn)[:, None] + rank,
+                        twon)
+    base = torch.where(first[:, None, None], -1.0, net_points)
     return _set_rows(base, slots,
                      torch.stack([rows.float(), cols.float(), o], -1))
 
@@ -499,32 +513,52 @@ def _transform_points(points: torch.Tensor, roi: torch.Tensor,
     return torch.cat([t, tf], 0)
 
 
+def _session_noise(noise: Dict[str, torch.Tensor],
+                   b: int) -> Dict[str, torch.Tensor]:
+    """One session's draws (`_prompt_noise`) -> the forward batch of B
+    sessions, [B originals; B flips]: draw r of the flip pair on rows
+    [r B, (r + 1) B). JAX's prompt key depends only on the click count
+    (predictor.py:491), so under its vmap every session draws what its own
+    sequential session draws; so does each session here."""
+    if b == 1:
+        return noise
+    return {k: v.repeat_interleave(b, 1 if k == "points_bits" else 0)
+            for k, v in noise.items()}
+
+
 def _prompt_inputs(cfg: PredictorConfig, state: SessionState,
                    crop: torch.Tensor, pts: torch.Tensor, roi: torch.Tensor,
                    noise: Dict[str, torch.Tensor]):
     """Box / scribble prompts from the ROI-cropped gt and error masks
-    (predictor.py:482-526), for a batch of ONE session (the flip pair).
+    (predictor.py:482-526), for a batch of B sessions (the forward batch
+    [B originals; B flips]); `noise` is one session's flip pair of draws.
     Returns (points, boxes, scribbles, ppue_points, prompt_type) for the
     forward."""
     th, tw = cfg.target_size
+    b = state.gt.shape[0]
+    rows = 2 if cfg.with_flip else 1
+    noise = _session_noise(noise, b)
     gtc = roi_crop_resize(state.gt[..., None], roi, th, tw)
     if cfg.with_flip:
         gtc = torch.cat([gtc, gtc.flip(2)], 0)
     gtf = gtc[..., 0]
     gtb = gtf > 0.5
-    first = state.click_count[0] <= 1           # eval loop's click_indx == 0
+    # per session, repeated over the forward batch's flip rows
+    first = (state.click_count <= 1).repeat(rows)  # eval's click_indx == 0
     det = cfg.deterministic_prompts
-    nmax = torch.maximum(state.num_pos[0], state.num_neg[0])
+    nmax = torch.maximum(state.num_pos, state.num_neg)
     if cfg.net_clicks_limit is not None:
         nmax = nmax.clamp_max(cfg.net_clicks_limit)
-    n_dyn = nmax.clamp_min(1)                   # base.py:199-202
+    n_dyn = nmax.clamp_min(1).repeat(rows)         # base.py:199-202
     if not cfg.as_multi_prompts:
         # points-rewrite protocol (base.py:153-163): box corners / scribble
         # control points become pseudo-clicks of a plain click forward
-        rewrite = (_rewrite_points_box if cfg.prompt_mode == 1
-                   else _rewrite_points_scribble)
-        return rewrite(pts, gtb, noise, n_dyn, first, det), None, None, \
-            None, 0
+        if cfg.prompt_mode == 1:
+            pts = _rewrite_points_box(pts, gtb, noise, n_dyn, first, det, b)
+        else:
+            pts = _rewrite_points_scribble(pts, gtb, noise, n_dyn, first,
+                                           det)
+        return pts, None, None, None, 0
     # prompt-tensor protocol (base.py:166-177): boxes from the dominant ROI
     # error region, plus get_next_promts' extra error click appended to the
     # PPuE points only (the disks keep the live clicks)
@@ -548,8 +582,8 @@ def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
                    points: torch.Tensor, prev_probs: torch.Tensor,
                    noise: Optional[Dict[str, torch.Tensor]] = None):
     """ROI update + crop + net forward + paste-back of a batch of sessions,
-    using `prev_probs`. `noise`: the click's prompt draws (prompt_mode 1 / 2,
-    one session)."""
+    using `prev_probs`. `noise`: the click's prompt draws (prompt_mode 1 / 2),
+    one session's, which every session of the batch draws alike."""
     st = state._replace(prev_probs=prev_probs)
     roi, has_roi = _update_roi(cfg, st, points)
     th, tw = cfg.target_size
@@ -635,11 +669,23 @@ def _iou(cfg: PredictorConfig, states: SessionState,
     return inter.float() / union.float().clamp_min(1.0)
 
 
+def _draw_noise(cfg: PredictorConfig, gen: Optional[torch.Generator],
+                device: torch.device) -> Optional[Dict[str, torch.Tensor]]:
+    """One round's prompt draws (None for clicks), one session's, from the
+    CPU generator `gen` (None: a fresh generator seeded NOISE_SEED)."""
+    if cfg.prompt_mode == 0:
+        return None
+    if gen is None:
+        gen = torch.Generator().manual_seed(NOISE_SEED)
+    return _prompt_noise(cfg, gen, device)
+
+
 def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
-                gen: Optional[torch.Generator]):
+                noise: Optional[Dict[str, torch.Tensor]]):
     """One interactive round of every session of a batch: (new states,
     ious (B,)). One min-plus launch for the B oracle clicks and one model
-    forward at batch 2B (B without flip)."""
+    forward at batch 2B (B without flip). `noise`: the round's prompt draws
+    (`_draw_noise`), or None for clicks."""
     # --- 1. oracle next click (clicker.py:21-69) ---
     pred = states.prev_probs[..., 0] > cfg.prob_thresh
     gt_pos = states.gt == 1
@@ -652,11 +698,6 @@ def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
     points, click_count = st.points, st.click_count
 
     # --- 2. forward, with the optional CFR cascade (base.py:59-72) ---
-    noise = None
-    if cfg.prompt_mode != 0:
-        noise = _prompt_noise(cfg, gen if gen is not None else
-                              torch.Generator().manual_seed(NOISE_SEED),
-                              states.image.device)
     probs, roi, has_roi = _forward_round(model, cfg, st, points, st.prev_probs,
                                          noise)
     if cfg.cascade_step > 1:
@@ -682,20 +723,20 @@ def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     `gen` (a CPU generator) supplies the prompt draws of prompt_mode 1 / 2,
     once per click (every cascade round reuses them, as JAX's per-click key
     does); None draws from a fresh generator seeded NOISE_SEED."""
-    st, iou = _click_step(model, cfg, _as_batch(state), gen)
+    st, iou = _click_step(model, cfg, _as_batch(state),
+                          _draw_noise(cfg, gen, state.image.device))
     return session(st, 0), iou[0]
 
 
 def batched_click_step(model: VPUModel, cfg: PredictorConfig,
-                       states: SessionState):
+                       states: SessionState,
+                       gen: Optional[torch.Generator] = None):
     """One round of every session of a batch (`stack_states`): (new states,
-    ious (B,)), each session's the same as its own `click_step`'s. Clicks
-    only (prompt_mode 0)."""
-    if cfg.prompt_mode != 0:
-        raise NotImplementedError("batched sessions run prompt_mode 0 "
-                                  "(clicks) only; box / scribble sessions "
-                                  "run one at a time (click_step)")
-    return _click_step(model, cfg, states, None)
+    ious (B,)), each session's the same as its own `click_step`'s. `gen`
+    supplies one session's prompt draws, which every session takes (as
+    `click_step` does; None: a fresh generator seeded NOISE_SEED)."""
+    return _click_step(model, cfg, states,
+                       _draw_noise(cfg, gen, states.image.device))
 
 
 def user_click_step(model: VPUModel, cfg: PredictorConfig,
@@ -708,13 +749,22 @@ def user_click_step(model: VPUModel, cfg: PredictorConfig,
     bool tensor. All three lie on the session's device, so the round makes
     no host sync. Returns (new_state, iou against state.gt: 0 for a
     gt-less demo session)."""
-    states = _put_user_click(_as_batch(state), is_positive.reshape(1),
+    st, iou = _user_click_step(model, cfg, _as_batch(state), y, x,
+                               is_positive)
+    return session(st, 0), iou[0]
+
+
+def _user_click_step(model: VPUModel, cfg: PredictorConfig,
+                     states: SessionState, y: torch.Tensor, x: torch.Tensor,
+                     is_positive: torch.Tensor):
+    """`user_click_step` on a batch of one session: (states, ious (1,))."""
+    states = _put_user_click(states, is_positive.reshape(1),
                              y.to(torch.int32).reshape(1),
                              x.to(torch.int32).reshape(1))
     probs, roi, has_roi = _forward_round(model, cfg, states, states.points,
                                          states.prev_probs)
     states = states._replace(prev_probs=probs, roi=roi, has_roi=has_roi)
-    return session(states, 0), _iou(cfg, states, probs)[0]
+    return states, _iou(cfg, states, probs)
 
 
 def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,
@@ -741,7 +791,9 @@ class Predictor:
     (None: the card; device="cpu" for the CPU) and cast once to the
     config's compute dtype, in place; with `int8` it runs a quantized copy
     (`nn.inference_model`). Each `set_input` restarts the prompt draws from
-    a CPU generator seeded NOISE_SEED."""
+    a CPU generator seeded NOISE_SEED. On the card every round is replayed
+    from a captured round (`graphs`, the counterpart of JAX's per-shape
+    compile cache); on the CPU the rounds run eagerly."""
 
     def __init__(self, model: VPUModel, cfg: PredictorConfig, device=None,
                  int8: bool = False):
@@ -775,13 +827,21 @@ class Predictor:
         self.gen.manual_seed(NOISE_SEED)
         self._undo = []
 
+    def _scan(self, num_clicks: int):
+        if graphs.replayed(self.device):
+            st, ious = graphs.click_rounds(self.model, self.cfg,
+                                           _as_batch(self.state), num_clicks,
+                                           self.gen)
+            return session(st, 0), ious[0]
+        return click_scan(self.model, self.cfg, self.state, num_clicks,
+                          self.gen)
+
     @torch.no_grad()
     def next_click(self) -> float:
         """One oracle-driven round; returns IoU."""
         self._undo.append(self.state)
-        self.state, iou = click_step(self.model, self.cfg, self.state,
-                                     self.gen)
-        return float(iou)
+        self.state, ious = self._scan(1)
+        return float(ious[0])
 
     @torch.no_grad()
     def user_click(self, y: float, x: float, is_positive: bool) -> float:
@@ -790,20 +850,20 @@ class Predictor:
         mode is off, whatever the calling thread's: the undo stack keeps
         the states, which must not hold a forward's autograd graph."""
         self._undo.append(self.state)
-        dev = self.device
-        self.state, iou = user_click_step(
-            self.model, self.cfg, self.state,
-            torch.tensor(float(y), device=dev),
-            torch.tensor(float(x), device=dev),
-            torch.tensor(bool(is_positive), device=dev))
+        if graphs.replayed(self.device):
+            self.state, iou = graphs.user_click_round(
+                self.model, self.cfg, self.state, y, x, is_positive)
+        else:
+            self.state, iou = user_click_step(
+                self.model, self.cfg, self.state, torch.tensor(float(y)),
+                torch.tensor(float(x)), torch.tensor(bool(is_positive)))
         return float(iou)
 
     @torch.no_grad()
     def run_clicks(self, num_clicks: int) -> np.ndarray:
         """`num_clicks` rounds; returns the IoU curve (one host read)."""
         self._undo.append(self.state)
-        self.state, ious = click_scan(self.model, self.cfg, self.state,
-                                      num_clicks, self.gen)
+        self.state, ious = self._scan(num_clicks)
         return ious.cpu().numpy()
 
     def undo_click(self) -> None:

@@ -11,6 +11,7 @@ f32 ulps at 1): a CPU matmul's sums may be ordered by its row count, and a
 batch of B sessions is a model batch of 2B (B without flip) where one
 session is 2; clicks, IoUs, ROIs and counters are held exactly."""
 import dataclasses
+import itertools
 
 import jax
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 
 from pvpuformer_tpu.inference import batched as jbatched
 from pvpuformer_tpu.inference.datasets import SyntheticDataset as JSynthetic
+from pvpuformer_tpu.inference import predictor as jpred
 from pvpuformer_tpu.inference.predictor import PredictorConfig as JConfig
 from pvpuformer_tpu.utils.serialization import config_to_dict
 from pvpuformer_tpu_torch.inference import batched, predictor as tpred
@@ -28,6 +30,7 @@ from pvpuformer_tpu_torch.ops import edt, resize
 from pvpuformer_tpu_torch.utils.serialization import config_from_dict
 from test_torch_eval import (Concat, Recording, eval_weights,  # noqa: F401
                              two_torch_threads)
+from test_torch_prompts import jax_noise
 
 CLICKS = 4
 
@@ -165,18 +168,116 @@ def test_stack_states_round_trip(setup):
             assert got.shape == ref.shape and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("mode", [1, 2])
-def test_batched_prompt_modes_raise(setup, mode):
+PROMPT_VARIANTS = {
+    "mode1_multi": dict(prompt_mode=1, as_multi_prompts=True),
+    "mode1_points": dict(prompt_mode=1, as_multi_prompts=False),
+    "mode2_multi": dict(prompt_mode=2, as_multi_prompts=True),
+    "mode2_points": dict(prompt_mode=2, as_multi_prompts=False),
+    "mode1_points_det": dict(prompt_mode=1, as_multi_prompts=False,
+                             deterministic_prompts=True),
+}
+PROMPT_SAMPLES = (0, 1, 3)     # two 64 x 64 objects and one 40 x 90
+
+
+@pytest.mark.parametrize("variant", sorted(PROMPT_VARIANTS))
+def test_batched_prompt_sessions_equal_click_scan(setup, variant):
+    """Box / scribble sessions in a batch of 3: every field after 4 rounds
+    equals each session's own click_scan, each session drawing its own
+    sequential session's prompt noise (random prompts, and deterministic
+    ones on one variant)."""
     _, _, model, cfg = setup
-    cfg = dataclasses.replace(cfg, prompt_mode=mode)
-    ds = SyntheticDataset(n_samples=2, hw=(64, 64))
-    states = tpred.stack_states(_states(cfg, [ds.get_sample(0),
-                                              ds.get_sample(1)], (64, 64)))
-    with pytest.raises(NotImplementedError, match="prompt_mode 0"):
-        tpred.batched_click_step(model, cfg, states)
-    with pytest.raises(NotImplementedError):
-        batched.BatchedEvaluator(model, cfg, 2, device="cpu").evaluate(
-            ds, max_clicks=1)
+    cfg = dataclasses.replace(cfg, **PROMPT_VARIANTS[variant])
+    ds = _datasets(SyntheticDataset)
+    singles = _states(cfg, [ds.get_sample(i) for i in PROMPT_SAMPLES])
+    with torch.no_grad():
+        states, ious = batched.batched_click_scan(
+            model, cfg, tpred.stack_states(singles), CLICKS)
+        for i, st in enumerate(singles):
+            st, want = tpred.click_scan(model, cfg, st, CLICKS)
+            np.testing.assert_array_equal(ious[i].numpy(), want.numpy())
+            _assert_state_equal(tpred.session(states, i), st)
+
+
+@pytest.mark.parametrize("variant", ["mode1_multi", "mode1_points",
+                                     "mode2_points"])
+def test_batched_prompt_sessions_at_different_clicks(setup, variant):
+    """Deterministic prompts (no draws), sessions at clicks 0, 1 and 2 in
+    one batch, and one at click 0 with an empty gt (no box, so it keeps its
+    clicks): the first-click rewrite, the slot capacity and whether a box
+    replaces the clicks are each session's own, so every session goes on
+    as its own click_scan."""
+    _, _, model, cfg = setup
+    cfg = dataclasses.replace(cfg, deterministic_prompts=True,
+                              **PROMPT_VARIANTS[variant])
+    ds = _datasets(SyntheticDataset)
+    empty = ds.get_sample(0)
+    with torch.no_grad():
+        singles = [tpred.click_scan(model, cfg, st, k)[0] if k else st
+                   for k, st in enumerate(_states(cfg, [
+                       ds.get_sample(i) for i in PROMPT_SAMPLES]))]
+        singles.append(tpred.init_session(
+            empty.image, np.zeros_like(empty.gt_mask(0)),
+            cfg.model.num_max_points, (64, 128), device="cpu"))
+        states, ious = batched.batched_click_scan(
+            model, cfg, tpred.stack_states(singles), CLICKS)
+        for i, st in enumerate(singles):
+            st, want = tpred.click_scan(model, cfg, st, CLICKS)
+            np.testing.assert_array_equal(ious[i].numpy(), want.numpy())
+            _assert_state_equal(tpred.session(states, i), st)
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_box_rewrite_decides_per_session(first):
+    """The box rewrite over the forward batch of two sessions, [2 originals;
+    2 flips]: the session without a box (an empty gt) keeps its clicks, the
+    other is rewritten, each as when alone (JAX's `jnp.any(ok)` is over one
+    session's flip pair under its vmap)."""
+    yy, xx = np.mgrid[:48, :64]
+    obj = ((yy - 22) / 14.0) ** 2 + ((xx - 30) / 20.0) ** 2 <= 1.0
+    gtb = torch.from_numpy(np.stack([obj, np.zeros_like(obj)] * 2))
+    gtb[2] = gtb[2].flip(-1)
+    pts = torch.full((4, 12, 3), -1.0)
+    pts[:, 0] = torch.tensor([22.0, 30.0, 0.0])
+    pts[:, 6] = torch.tensor([40.0, 52.0, 1.0])
+    n_dyn = torch.tensor([1, 2, 1, 2], dtype=torch.int32)
+    got = tpred._rewrite_points_box(pts, gtb, {}, n_dyn,
+                                    torch.tensor(first).expand(4), True, 2)
+    for i in (0, 1):
+        rows = [i, 2 + i]
+        want = tpred._rewrite_points_box(pts[rows], gtb[rows], {},
+                                         n_dyn[rows], torch.tensor(first),
+                                         True)
+        assert torch.equal(got[rows], want)
+    assert torch.equal(got[[1, 3]], pts[[1, 3]])
+    assert not torch.equal(got[[0, 2]], pts[[0, 2]])
+
+
+@pytest.mark.parametrize("variant", ["mode1_points", "mode2_multi"])
+def test_batched_prompt_sessions_match_jax(setup, monkeypatch, variant):
+    """One variant per protocol: the port's batch of 3 against JAX's
+    `batched_click_scan` (a vmap of its click_scan), JAX's draws injected:
+    the same click slots in every session, IoU within 1e-5."""
+    params, jpc, model, cfg = setup
+    jcfg = dataclasses.replace(jpc, **PROMPT_VARIANTS[variant])
+    cfg = config_from_dict(config_to_dict(jcfg))
+    n = jcfg.model.num_max_points
+    jds, ds = _datasets(JSynthetic), _datasets(SyntheticDataset)
+    jstates = jbatched._stack_states([
+        jpred.init_session(s.image, s.gt_mask(0), n, (64, 128))
+        for s in (jds.get_sample(i) for i in PROMPT_SAMPLES)])
+    with jax.default_matmul_precision("highest"):
+        jst, jious = jbatched.batched_click_scan(params, jcfg, jstates, CLICKS)
+    counter = itertools.count(1)
+    monkeypatch.setattr(tpred, "_prompt_noise",
+                        lambda cfg, gen, device: jax_noise(cfg, next(counter)))
+    with torch.no_grad():
+        st, ious = batched.batched_click_scan(
+            model, cfg, tpred.stack_states(
+                _states(cfg, [ds.get_sample(i) for i in PROMPT_SAMPLES])),
+            CLICKS)
+    np.testing.assert_array_equal(
+        st.points.numpy(), np.asarray(jst.points).reshape(st.points.shape))
+    np.testing.assert_allclose(ious.numpy(), np.asarray(jious), atol=1e-5)
 
 
 def _blobs(r, b, h, w):

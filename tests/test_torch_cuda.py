@@ -688,3 +688,130 @@ def test_input_brs_objective_card_matches_cpu(cuda, target):
 def test_serving_parity_cuda_matches_cpu(cuda):
     import chip_smoke
     chip_smoke.phase_serving_parity(cuda)
+
+
+def _replay_setup(cuda, **kw):
+    """A tiny f32 Predictor on the card (its rounds replayed from captured
+    rounds) and the prompt tests' image and gt."""
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+    cfg = PredictorConfig(model=_tiny_config(), target_size=(64, 64),
+                          min_crop_size=32, **kw)
+    model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+    r = np.random.default_rng(7)
+    image = (r.uniform(size=(60, 90, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((60, 90), np.float32)
+    gt[14:50, 18:46] = 1.0
+    return Predictor(model, cfg, device=cuda), image, gt
+
+
+def _launches():
+    import chip_smoke
+    return chip_smoke._counts()
+
+
+def _zero():
+    import chip_smoke
+    chip_smoke._zero_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clicks", "mode2_multi", "batched",
+                                  "batched_mode1_points", "user"])
+def test_replayed_rounds_match_eager(cuda, kind):
+    """Rounds replayed from a captured round (inference/graphs.py) against
+    the eager functions from the same state: every state field and IoU
+    bit-identical (the same ops in the same order), and the kernels'
+    launch counts the same."""
+    from pvpuformer_tpu_torch.inference import batched, graphs
+    from pvpuformer_tpu_torch.inference import predictor as P
+    kw = {"mode2_multi": dict(prompt_mode=2),
+          "batched_mode1_points": dict(prompt_mode=1,
+                                       as_multi_prompts=False)}.get(kind, {})
+    pred, image, gt = _replay_setup(cuda, **kw)
+    graphs.clear()
+    if kind.startswith("batched"):
+        r = np.random.default_rng(0)
+        cfg = batched.resolve_batched_cfg(pred.cfg)
+        states = P.stack_states([P.init_session(
+            image, np.roll(gt, int(r.integers(-10, 10)), 1), 6, (64, 128),
+            cuda) for _ in range(3)])
+
+        def eager():
+            return batched.batched_click_scan(pred.model, cfg, states, 4)
+
+        def replayed():
+            return graphs.click_rounds(pred.model, cfg, states, 4)
+    elif kind == "user":
+        clicks = [(20.5, 30.25, True), (40.0, 70.0, False), (10.0, 50.0, True)]
+        pred.set_input(image, gt)
+        state0 = pred.state
+
+        def eager():
+            st, ious = state0, []
+            for y, x, pos in clicks:
+                st, iou = P.user_click_step(
+                    pred.model, pred.cfg, st, torch.tensor(y, device=cuda),
+                    torch.tensor(x, device=cuda),
+                    torch.tensor(pos, device=cuda))
+                ious.append(iou)
+            return st, torch.stack(ious)
+
+        def replayed():
+            pred.state = state0
+            ious = [pred.user_click(y, x, pos) for y, x, pos in clicks]
+            return pred.state, torch.tensor(ious)
+    else:
+        pred.set_input(image, gt)
+        state0 = pred.state
+
+        def eager():
+            return P.click_scan(pred.model, pred.cfg, state0, 4)
+
+        def replayed():
+            pred.state = state0
+            pred.gen.manual_seed(P.NOISE_SEED)
+            ious = pred.run_clicks(4)
+            return pred.state, torch.from_numpy(ious)
+    counts = []
+    outs = []
+    for fn in (eager, replayed, replayed):     # capture, then a pure replay
+        _zero()
+        with torch.no_grad():
+            st, ious = fn()
+        torch.cuda.synchronize()
+        counts.append(_launches())
+        outs.append((st, ious.cpu()))
+    assert len(graphs._graphs) == 1
+    assert counts[0] == counts[1] == counts[2]
+    assert counts[0]["fused_attention"] > 0
+    for st, ious in outs[1:]:
+        assert torch.equal(ious.float(), outs[0][1].float())
+        for name, a, b in zip(P.SessionState._fields, st, outs[0][0]):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_undo_keeps_a_copy_across_replays(cuda):
+    """The undo stack holds states no later replay writes, also when
+    another session on the same model replays the same captured round."""
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference.predictor import Predictor
+    pred, image, gt = _replay_setup(cuda)
+    other = Predictor(pred.model, pred.cfg, device=cuda)
+    pred.set_input(image, gt)
+    other.set_input(image[:, ::-1].copy(), gt[:, ::-1].copy())
+    pred.next_click()
+    kept_state = pred.state
+    kept = [t.clone() for t in kept_state]
+    pred.next_click()
+    other.run_clicks(3)
+    pred.next_click()
+    pred.undo_click()
+    pred.undo_click()
+    assert pred.state is kept_state
+    for a, b in zip(pred.state, kept):
+        assert torch.equal(a, b)
+    static = {t.data_ptr() for r in graphs._graphs.values() for t in r.state}
+    assert not static & {t.data_ptr() for t in pred.state}

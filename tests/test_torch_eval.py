@@ -318,6 +318,35 @@ def test_cli_random_weights_sequential_and_batched(tmp_path, capsys):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("mode", [1, 2])
+def test_cli_batched_prompt_modes_match_sequential(tmp_path, capsys, mode):
+    """Box / scribble NoC evaluation on a checkpoint, f32, one session at a
+    time and two per batch (the last chunk padded): the same table row,
+    mIoU@k line and curves."""
+    params, jcfg, _ = eval_weights()
+    ckpt = tmp_path / "tiny.npz"
+    save_checkpoint(ckpt, params, jcfg)
+    outs, curves = [], []
+    for extra in ([], ["--batched", "2"]):
+        logs = tmp_path / f"b{len(extra)}"
+        cli.main(["--checkpoint", str(ckpt), "--datasets", "Synthetic",
+                  "--limit", "3", "--n-clicks", str(CLICKS), "--dtype",
+                  "float32", "--prompt-mode", str(mode), "--print-ious",
+                  "--save-ious", "--device", "cpu", "--logs-path",
+                  str(logs)] + extra)
+        outs.append(capsys.readouterr().out)
+        with open(logs / f"Synthetic_cvpr_NoBRS_{CLICKS}.pickle", "rb") as f:
+            curves.append(pickle.load(f)["all_ious"])
+    assert ("throughput:" in outs[1]) and ("throughput:" not in outs[0])
+    assert _table_row(outs[0]) == _table_row(outs[1])
+    assert ([line for line in outs[0].splitlines() if line.startswith("mIoU@k")]
+            == [line for line in outs[1].splitlines()
+                if line.startswith("mIoU@k")])
+    assert len(curves[0]) == len(curves[1]) == 3
+    for a, b in zip(*curves):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_cli_runs_on_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -329,8 +358,7 @@ def test_cli_runs_on_the_card_by_default(monkeypatch):
     (["--eval-mesh", "4"], "not ported yet"),
     (["--vis-preds"], "not ported yet"),
     (["--batched", "2", "f-BRS-B"], "NoBRS only"),
-    (["SAM", "--sam-checkpoint", "sam.pth"], "not ported yet"),
-    (["--batched", "2", "--prompt-mode", "1"], "clicks only")])
+    (["SAM", "--sam-checkpoint", "sam.pth"], "not ported yet")])
 def test_cli_refuses_what_is_not_ported(argv, message, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--random-weights", "--device", "cpu"] + argv)

@@ -23,6 +23,7 @@ import pvpuformer_tpu_torch.engine.optimizer
 import pvpuformer_tpu_torch.engine.train_step
 import pvpuformer_tpu_torch.engine.trainer
 import pvpuformer_tpu_torch.inference.batched
+import pvpuformer_tpu_torch.inference.graphs, pvpuformer_tpu_torch.bench
 import pvpuformer_tpu_torch.inference.clicker
 import pvpuformer_tpu_torch.inference.datasets
 import pvpuformer_tpu_torch.inference.evaluation
