@@ -15,7 +15,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      kernels, bit-exact and bit-identical on repeat at iters 1, 2, 8 and 16,
      at every mask of CC_MASKS: a snake and a spiral that need more than 8
      rounds, 50176 components, ragged, empty, full, 1 x W and H x 1 masks,
-     a 4096 x 4096 image; one CUDA kernel per call, counted with
+     a 4096 x 4096 image, and the batched prompt sessions' 16 flip-batch
+     masks at B = 8; one CUDA kernel per call, counted with
      torch.profiler; the min-plus kernel bit-exact, bit-identical on repeat
      and one CUDA kernel per call at the click and training shapes, two
      ragged ones and the widest row, W = 8192, with values up to 2^24 - 1,
@@ -43,8 +44,12 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
   5. the main path: ViT-B@448 bf16, seeded random weights, two 20-click
      sessions through `Predictor` (on the card its rounds are replayed
      from a captured round, inference/graphs.py), then 3 clicks with
-     attn_impl="flash"; IoUs finite in [0, 1], click counts, and every
-     kernel's launch count equal to the wrapper calls the path makes; then
+     attn_impl="flash"; IoUs finite in [0, 1], click counts, and the
+     launch checks: the counters zeroed just before a run and read just
+     after hold the wrapper calls of the rounds run eagerly or captured
+     (a replay calls no wrapper), and the same run again under
+     torch.profiler shows each kernel launched on the card once per call
+     its rounds make (LAUNCH CHECKS below); then
      the eager `click_scan` against `Predictor.run_clicks` from one state,
      bit-identical, with the p50 ms per click of both and the replayed
      session's device time; `python -m pvpuformer_tpu_torch.bench` and
@@ -54,8 +59,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      identical clicks, IoU within 1e-5;
   7. the prompt path: ViT-B@448 bf16 box / scribble sessions through
      `Predictor`, 5 clicks for each of the four variants (random prompts):
-     IoUs finite in [0, 1] and every kernel's launch count equal to the
-     wrapper calls the path makes, counted per variant; one more click of
+     IoUs finite in [0, 1] and the launch checks, per variant; one more click of
      each variant and of the click path under torch's sync debug mode, and
      one more captured into a CUDA graph (a capture fails on any host
      sync); per variant 20 rounds of the eager `click_scan` against
@@ -80,9 +84,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      objects (16 of Synthetic 448 x 448, 5 of 300 x 500: two canvas
      buckets, padded chunks) x 20 clicks, through sequential
      `evaluate_dataset` and `BatchedEvaluator` at B = 8 and 16: objects/s,
-     clicks/s, ms per click round and each kernel's launches per round,
-     which must be the same for every B (depth fused attention, depth
-     LN+MLP, one min-plus); curves finite in [0, 1] of the right length;
+     clicks/s, ms per click round and the launch checks, whose kernel
+     launches per round must be the same for every B (depth fused
+     attention, depth LN+MLP, one min-plus); curves finite in [0, 1] of the right length;
      the share of sessions whose clicks equal the sequential run's and the
      max |dIoU| (reported, not gated: bf16 products may round by the
      batch); one `batched_click_step` captured into a CUDA graph; at B = 8
@@ -90,10 +94,15 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      every chunk replayed from the captured round against the eager
      `batched_click_scan`: curves and click slots bit-identical, clicks/s
      of both (and, for the prompt variants, of sequential sessions, with
-     the share of sessions whose clicks equal theirs, reported); the EDT
-     pass-1 forms' times at B = 16's masks;
+     the share of sessions whose clicks equal theirs, reported), the
+     replayed runs with the launch checks; the EDT pass-1 forms' times at
+     B = 16's masks; the captured rounds' cache (`phase_graph_cache`): per
+     key the ms of its first (eager), second (captured) and third
+     (replayed) round and the memory reserved, and sequential evaluation
+     over six canvas buckets met round robin in sessions of 1, 3 and 20
+     clicks, eager and replayed with 4 and 8 graphs (MAX_GRAPHS is 8);
  12. presets: one 3-click bf16 session each of ViT-L@448 and ViT-H@448,
-     random weights, launch counts equal to the wrapper calls;
+     random weights, with the launch checks;
  13. the training entry point: (a) `python -m pvpuformer_tpu_torch.train`
      on the tiny recipe (--debug --batch-size 8) and `python -m
      pvpuformer_tpu_torch.evaluate` on its checkpoint, each a process on
@@ -124,17 +133,29 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      pvpuformer_tpu_torch.demo --random-weights` as a process with REPL
      commands on stdin, which must write its mask; 10 user-click rounds of
      the bf16 and the int8 `Predictor` (p50 ms per round, the largest IoU
-     difference between them, launches per round: attention and LN+MLP
-     12 / 12 in bf16, 12 / 0 in int8; the replayed rounds' masks and IoUs
+     difference between them, the launch checks with attention and
+     LN+MLP 12 / 12 per round in bf16, 12 / 0 in int8; the replayed
+     rounds' masks and IoUs
      bit-identical to the eager `user_click_step`'s) and one more
      `user_click_step` of each captured into a CUDA graph; f-BRS-B and
      RGB-BRS, 3 oracle clicks
      each at max_iters 20 (ms and functor evaluations per click; launches
      per click: one min-plus, 12 attention and LN+MLP forwards per full
      forward, 12 attention and LN+MLP backwards per RGB-BRS evaluation);
-then one JSON line of kernel summaries (launches summed over the paths of
-phases 5, 7, 9 and 15), the card's name and power limit, and, last,
-{"ok": true, "device": ...}.
+then one JSON line of kernel summaries (launches: the wrapper counts
+summed over the paths of phases 5, 7, 9 and 15), the card's name and power
+limit, and, last, {"ok": true, "device": ...}.
+
+LAUNCH CHECKS. A kernel wrapper counts its calls where it launches: in an
+eager round and in the capture of a round, which records the launch into
+a CUDA graph. Replaying the graph runs the kernels without a call, so the
+counters cannot see a replay. `_launch_checks` therefore reads two
+numbers for a run of rounds: the counters (zeroed just before the run,
+read just after), which must equal the calls of the rounds that ran
+eagerly or were captured (`graphs.rounds`), and, from the same run taken
+again under torch.profiler (CUPTI traces each kernel of a replayed graph),
+each hand-written kernel's launches on the card, which must equal its
+calls per round times the rounds.
 
     python3 chip_smoke.py --profile
 
@@ -146,9 +167,11 @@ group, launches per round, the device busy share under the profiler, and
 the host-clock median of unprofiled rounds beside it.
 
 No phase's depth was cut for time: the whole script, the build included,
-takes about 290 s on an NVIDIA H100 80GB HBM3 at 700 W (phases 14-15
-about 35 s of it, phase 5's two bench processes about 65 s), of its 1200 s
-limit.
+takes about 540 s on an NVIDIA H100 80GB HBM3 at 700 W (phase 5's two
+bench processes about 65 s of it; the launch checks' second runs under
+the profiler, each window opened by 0.25 s of guard kernels, and the
+graph-cache workload add the most beyond the phases themselves), of its
+1200 s limit.
 """
 from __future__ import annotations
 
@@ -603,36 +626,140 @@ def phase_cc(dev, g, record, times):
                                           bound_ms_train=bound[0])
 
 
-def _cuda_kernels(fn, sessions: int = 3):
-    """The names of the CUDA kernels one call of `fn` launches.
+TRACE_TRIES = 3          # _launch_checks: traces taken at most
+GUARD = 100              # _kernel_trace: spin kernels ahead of the call
+GUARD_CYCLES = 5_000_000  # about 2.5 ms each at the H100's clock
 
-    The profiler can lose a session's kernels (a process's first session
-    has come back empty on the H100), so each session brackets the call
-    with a marker, one fill kernel launched before it and one after, each
-    behind a synchronize. The call's kernels are those that start between
-    the two markers; a session that lost either marker proves nothing and
-    is taken again, at most `sessions` times."""
+
+def _kernel_trace(fn, sessions: int = 3):
+    """fn() under torch.profiler (CUPTI; a CUDA graph's replay shows each
+    kernel it runs): (fn()'s result, the names of the CUDA kernels and
+    copies fn() launched, in the order they started).
+
+    The profiler loses the first records of a session, and more of them
+    the longer chip_smoke runs: a process's first session has come back
+    empty, and on the H100 sessions kept 19 of 20 guard kernels of 5 ms in
+    phase 5, 12 in phase 7 and none late in phase 11 (a process that only
+    traced replayed rounds kept them all over 60 sessions). So each
+    session first launches `guard` spin kernels (`torch.cuda._sleep`,
+    GUARD of about 2.5 ms, 0.25 s in all), each behind a synchronize, and
+    leaves them out of the names; a session that kept no spin kernel, or
+    no kernel of fn(), is taken again with twice the guard (fn() runs
+    again), at most `sessions` times. The callers that count kernels
+    compare the counts with exact predictions (`_launch_checks` takes a
+    short trace again).
+    (The records' start times order kernels, not copies: a pageable
+    copy's record can start before a kernel launched ahead of it.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    marker = torch.empty(1, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    seen = []
+    guard = GUARD
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            marker.fill_(0.0)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-            marker.fill_(1.0)
+            for _ in range(guard):
+                torch.cuda._sleep(GUARD_CYCLES)
+                torch.cuda.synchronize()
+            out = fn()
             torch.cuda.synchronize()
         seen = sorted((e.time_range.start, e.name) for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if (len(seen) >= 2 and seen[0][1] == seen[-1][1]
-                and "Fill" in seen[0][1]):
-            return [name for _, name in seen[1:-1]]
-    raise AssertionError(f"the profiler lost the markers in {sessions} "
-                         f"sessions; the last saw {[n for _, n in seen]}")
+        names = [name for _, name in seen if "spin_kernel" not in name]
+        kept = len(seen) - len(names)
+        if kept < guard:
+            _log(f"    (the profiler kept {kept} of {guard} guard kernels)")
+        if names and kept:
+            return out, names
+        guard *= 2
+    raise AssertionError(f"the profiler kept no guard kernel or no kernel "
+                         f"of the call in {sessions} sessions")
+
+
+def _cuda_kernels(fn, sessions: int = 3):
+    """The names of the CUDA kernels one call of `fn` launches (after one
+    call to warm up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    return _kernel_trace(fn, sessions)[1]
+
+
+# the hand-written kernels' CUDA names (substrings) -> their wrapper; the
+# fused and flash entries of csrc/attention.cu are one kernel (None: the
+# attention wrapper the path calls)
+KERNEL_NAMES = (("attention_fwd", None), ("minplus_envelope", "minplus_rows"),
+                ("ln_fc1_gelu", "fused_ln_mlp"),
+                ("flood_kernel<1>", "cc_labels"),
+                ("flood_kernel<2>", "component_max"))
+
+
+def _device_launches(fn, attn: str = "fused_attention"):
+    """fn() with the launches it made on the card read from a profiler
+    trace (`_kernel_trace`), graph replays included: (fn()'s result,
+    {wrapper name: launches of its kernel}); the attention kernel's are
+    counted under `attn`."""
+    out, names = _kernel_trace(fn)
+    counts = {w.__name__: 0 for w in _wrappers()}
+    for name in names:
+        for key, wrapper in KERNEL_NAMES:
+            if key in name:
+                counts[wrapper or attn] += 1
+    return out, counts
+
+
+def _launch_checks(fn, per_round, rounds: int, what: str,
+                   attn: str = "fused_attention", traced=None):
+    """The launch checks of a path whose rounds replay captured rounds
+    (inference/graphs.py). fn() runs `rounds` rounds, each of which calls
+    the wrappers `per_round` ({name: calls}) times. The counters are zeroed
+    just before fn() and read just after: each wrapper must have counted
+    the calls of the rounds that ran eagerly or were captured
+    (graphs.rounds), since a replay calls nothing. Then fn()'s work runs
+    again under the profiler (`_device_launches`), and each kernel must
+    have run per_round x rounds times on the card. `traced`: (callable,
+    its rounds) pairs that redo fn()'s work in parts, one profiler window
+    each (default: fn() whole). The profiler loses records now and then
+    (a few rounds' kernels of a window of tens of rounds, late in a run,
+    on the H100) and never adds one, so a part's trace that falls short
+    of its prediction is taken again, at most TRACE_TRIES times in all:
+    an exact trace passes, and a count above the prediction fails at
+    once. Returns (the first fn()'s result, the wrapper counts, the device
+    launches)."""
+    import torch
+    from pvpuformer_tpu_torch.inference import graphs
+    r0 = dict(graphs.rounds)
+    _zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    calls = _counts()
+    ran = {k: graphs.rounds[k] - r0[k] for k in r0}
+    called = ran["eager"] + ran["captured"]
+    want_calls = {k: per_round.get(k, 0) * called for k in calls}
+    names = [w.__name__ for w in _wrappers()]
+    want_device = {k: per_round.get(k, 0) * rounds for k in names}
+    parts = traced or [(fn, rounds)]
+    device, retaken = dict.fromkeys(names, 0), 0
+    for part, n in parts:
+        want = {k: per_round.get(k, 0) * n for k in names}
+        for tries in range(TRACE_TRIES):
+            got = _device_launches(part, attn)[1]
+            if got == want or any(got[k] > want[k] for k in names):
+                break
+        retaken += tries
+        for k in names:
+            device[k] += got[k]
+    ok = (calls == want_calls and device == want_device
+          and ran["eager"] + ran["replayed"] == rounds
+          and sum(n for _, n in parts) == rounds)
+    _log(f"  {what}: rounds {ran} (of {rounds}); wrapper calls "
+         f"{ {k: v for k, v in calls.items() if v} } (eager and captured "
+         f"rounds); device launches (torch.profiler, {len(parts)} "
+         f"window(s), {retaken} taken again) "
+         f"{ {k: v for k, v in device.items() if v} } "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(
+            f"{what}: wrapper calls {calls} (want {want_calls}), device "
+            f"launches {device} (want {want_device}), rounds {ran}")
+    return out, calls, device
 
 
 def ln_mlp_chain(x, ln, mlp):
@@ -762,6 +889,8 @@ def _large():
 CC_MASKS = {
     "path": lambda: _blobs(0, 2, 448, 448, 12),
     "train": lambda: _blobs(2, 32, 448, 448, 12),
+    # the batched prompt sessions' flip batch at B = 8 (2B masks)
+    "batched": lambda: _blobs(5, 2 * EVAL_BATCHES[0], 448, 448, 12),
     "snake": _snake,
     "speckles": lambda: _speckles(),
     "dots": lambda: _dots(448),
@@ -840,6 +969,7 @@ def phase_parity(dev):
 def phase_main(dev, card: str):
     """Phase 5: ViT-B@448 bf16 click sessions through the kernels."""
     import torch
+    from pvpuformer_tpu_torch.inference import graphs
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
                                                          PredictorConfig,
                                                          init_session)
@@ -853,7 +983,6 @@ def phase_main(dev, card: str):
     gt[96:352, 128:320] = 1.0
     pred = Predictor(model, pcfg, device=dev)
     depth = mcfg.backbone.depth
-    wrappers = _wrappers()
 
     def check_session(ious, n):
         if not (np.isfinite(ious).all() and ious.shape == (n,)
@@ -862,45 +991,54 @@ def phase_main(dev, card: str):
         if int(pred.state.click_count) != n:
             raise AssertionError(f"click_count {int(pred.state.click_count)}")
 
-    for w in wrappers:
-        w.launches = 0
-    t0 = time.perf_counter()
-    pred.set_input(image, gt)
-    ious = pred.run_clicks(CLICKS)                 # session 1 (warm-up)
-    check_session(ious, CLICKS)
-    first_s = time.perf_counter() - t0
-    pred.set_input(image, gt)                      # session 2, timed per click
-    per_click, ious2 = [], []
-    for _ in range(CLICKS):
-        t = time.perf_counter()
-        ious2.append(pred.next_click())            # float(iou) syncs
-        per_click.append((time.perf_counter() - t) * 1e3)
-    check_session(np.asarray(ious2), CLICKS)
-    counts = {w.__name__: w.launches for w in wrappers}
-    clicks = 2 * CLICKS
-    want = {"fused_attention": depth * clicks, "flash_attention": 0,
-            "minplus_rows": clicks, "fused_ln_mlp": depth * clicks,
-            "cc_labels": 0, "component_max": 0}
+    def sessions():
+        """Session 1 (its first round eager, its second captured), then
+        session 2, timed per click: replayed rounds."""
+        t0 = time.perf_counter()
+        pred.set_input(image, gt)
+        ious = pred.run_clicks(CLICKS)
+        check_session(ious, CLICKS)
+        first_s = time.perf_counter() - t0
+        pred.set_input(image, gt)
+        per_click, ious2 = [], []
+        for _ in range(CLICKS):
+            t = time.perf_counter()
+            ious2.append(pred.next_click())        # float(iou) syncs
+            per_click.append((time.perf_counter() - t) * 1e3)
+        check_session(np.asarray(ious2), CLICKS)
+        return ious, first_s, per_click
+
     flash_pred = Predictor(model, dataclasses.replace(pcfg, model=mcfg.replace(
         backbone=dataclasses.replace(mcfg.backbone, attn_impl="flash"))),
         device=dev)
-    flash_pred.set_input(image, gt)
-    ious3 = flash_pred.run_clicks(FLASH_CLICKS)
-    if not (np.isfinite(ious3).all() and (ious3 >= 0).all()
-            and (ious3 <= 1).all()):
-        raise AssertionError(f"flash session IoUs {ious3}")
-    torch.cuda.synchronize()
-    total = {w.__name__: w.launches for w in wrappers}
-    want_total = dict(want, flash_attention=depth * FLASH_CLICKS,
-                      minplus_rows=clicks + FLASH_CLICKS,
-                      fused_ln_mlp=depth * (clicks + FLASH_CLICKS))
+
+    def flash_session():
+        flash_pred.set_input(image, gt)
+        ious3 = flash_pred.run_clicks(FLASH_CLICKS)
+        if not (np.isfinite(ious3).all() and (ious3 >= 0).all()
+                and (ious3 <= 1).all()):
+            raise AssertionError(f"flash session IoUs {ious3}")
+        return ious3
+
+    def session():
+        pred.set_input(image, gt)
+        pred.run_clicks(CLICKS)
+
+    graphs.clear()
+    per_round = {"fused_attention": depth, "minplus_rows": 1,
+                 "fused_ln_mlp": depth}
+    (ious, first_s, per_click), total, _ = _launch_checks(
+        sessions, per_round, 2 * CLICKS, "click sessions",
+        traced=[(session, CLICKS)] * 2)
+    ious3, flash_calls, _ = _launch_checks(
+        flash_session, dict(per_round, fused_attention=0,
+                            flash_attention=depth), FLASH_CLICKS,
+        "flash session", attn="flash_attention")
+    for k, v in flash_calls.items():
+        total[k] += v
     _log(f"  session 1: {CLICKS} clicks in {first_s:.2f} s (incl. warm-up), "
          f"final IoU {ious[-1]:.4f}; session 2 median {np.median(per_click):.3f}"
          f" ms/click ({card}); flash session IoU {ious3[-1]:.4f}")
-    _log(f"  launches: {total} expected {want_total}")
-    if total != want_total or counts != want:
-        raise AssertionError("a kernel was launched a different number of "
-                             "times than the main path calls its wrapper")
     state0 = init_session(image, gt, mcfg.num_max_points, (448, 448), dev)
     _replay_vs_eager(pred, state0, CLICKS, "click path", card)
     phase_bench()
@@ -989,8 +1127,7 @@ def phase_prompts(dev, card: str, model):
     gt = np.zeros((448, 448), np.float32)
     gt[96:352, 128:320] = 1.0
     depth = mcfg.backbone.depth
-    wrappers = _wrappers()
-    total = {w.__name__: 0 for w in wrappers}
+    total = {}
     medians, preds = {}, []
     for (mode, multi), (n_cc, n_cm, n_mp) in PROMPT_VARIANTS.items():
         pred = Predictor(model, PredictorConfig(
@@ -1002,34 +1139,33 @@ def phase_prompts(dev, card: str, model):
             t = time.perf_counter()
             _prompt_noise(pred.cfg, torch.Generator().manual_seed(0), dev)
             noise_ms.append((time.perf_counter() - t) * 1e3)
-        for w in wrappers:
-            w.launches = 0
-        per_click, ious = [], []
-        for _ in range(PROMPT_CLICKS):
-            t = time.perf_counter()
-            ious.append(pred.next_click())             # float(iou) syncs
-            per_click.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
-        counts = {w.__name__: w.launches for w in wrappers}
-        c = PROMPT_CLICKS
-        want = {"fused_attention": depth * c, "flash_attention": 0,
-                "minplus_rows": n_mp * c, "fused_ln_mlp": depth * c,
-                "cc_labels": n_cc * c, "component_max": n_cm * c}
-        ious = np.asarray(ious)
+
+        def clicks(pred=pred):
+            """PROMPT_CLICKS rounds, timed per click: the first eager, the
+            second captured (a new key), then replays."""
+            per_click, ious = [], []
+            for _ in range(PROMPT_CLICKS):
+                t = time.perf_counter()
+                ious.append(pred.next_click())         # float(iou) syncs
+                per_click.append((time.perf_counter() - t) * 1e3)
+            return np.asarray(ious), per_click
+
         name = f"mode {mode} {'multi' if multi else 'points'}"
+        per_round = {"fused_attention": depth, "minplus_rows": n_mp,
+                     "fused_ln_mlp": depth, "cc_labels": n_cc,
+                     "component_max": n_cm}
+        (ious, per_click), counts, _ = _launch_checks(
+            clicks, per_round, PROMPT_CLICKS, name)
         medians[name] = float(np.median(per_click))
         _log(f"  {name}: IoUs {np.round(ious, 4).tolist()}, median "
-             f"{medians[name]:.3f} ms/click (first {per_click[0]:.1f} ms; "
-             f"noise draw {np.median(noise_ms):.3f} ms on the host) "
-             f"({card}); launches {counts}")
+             f"{medians[name]:.3f} ms/click (first {per_click[0]:.1f} ms, "
+             f"second {per_click[1]:.1f} ms; noise draw "
+             f"{np.median(noise_ms):.3f} ms on the host) ({card})")
         if not (np.isfinite(ious).all() and (ious >= 0).all()
                 and (ious <= 1).all()):
             raise AssertionError(f"{name}: bad IoU curve {ious}")
-        if counts != want:
-            raise AssertionError(f"{name}: launches {counts}, the path calls "
-                                 f"the wrappers {want} times")
         for k, v in counts.items():
-            total[k] += v
+            total[k] = total.get(k, 0) + v
         _replay_vs_eager(pred, init_session(image, gt, mcfg.num_max_points,
                                             (448, 448), dev), CLICKS, name,
                          card)
@@ -1449,6 +1585,19 @@ EVAL_BATCHES = (8, 16)    # phase 11's batch sizes
 PRESET_CLICKS = 3         # phase 12, per preset
 
 
+class _Slice:
+    """Samples [lo, hi) of a dataset."""
+
+    def __init__(self, ds, lo: int, hi: int):
+        self.ds, self.lo, self.hi = ds, lo, min(hi, len(ds))
+
+    def __len__(self):
+        return self.hi - self.lo
+
+    def get_sample(self, i):
+        return self.ds.get_sample(self.lo + i)
+
+
 class _Concat:
     """Datasets one after the other."""
 
@@ -1492,12 +1641,12 @@ def _patched(module, name, wrap):
 @contextlib.contextmanager
 def _batched_points(dataset, bev):
     """Collect the final click slots of every chunk that
-    `bev.evaluate(dataset, ...)` runs (`batched.batched_click_scan` on the
-    CPU, `graphs.click_rounds` on the card); the yielded list is filled,
+    `bev.evaluate(dataset, ...)` runs (`graphs.click_rounds`, the eager
+    `batched_click_scan` on the CPU); the yielded list is filled,
     after the block, with one (2N, 3) tensor per object in dataset order
     (the chunks' padding dropped). The evaluator's order: canvas bucket by
     bucket, chunk by chunk."""
-    from pvpuformer_tpu_torch.inference import batched, graphs
+    from pvpuformer_tpu_torch.inference import graphs
     log, out = [], []
 
     def record(scan):
@@ -1506,8 +1655,7 @@ def _batched_points(dataset, bev):
             log.append(states.points)
             return states, ious
         return recorded
-    with _patched(batched, "batched_click_scan", record), \
-            _patched(graphs, "click_rounds", record):
+    with _patched(graphs, "click_rounds", record):
         yield out
     groups, k = {}, 0
     for i in range(len(dataset)):
@@ -1534,48 +1682,47 @@ def _variant(mode: int, multi: bool) -> str:
             f"mode {mode} {'multi' if multi else 'points'}")
 
 
-def _chunk_runs(ds, bev, clicks: int):
-    """`bev.evaluate(ds)` twice on the card: its chunks replayed from the
-    captured round (`graphs.click_rounds`), counting each chunk's replays,
-    then with the eager `batched_click_scan` in graphs.click_rounds' place.
-    Returns ({"replayed" / "eager": (curves, click slots per object,
-    stats, launch counts)}, replays per chunk of the replayed run)."""
+def _chunk_runs(ds, bev, clicks: int, per_round, rounds: int, what: str,
+                traced):
+    """`bev.evaluate(ds)` on the card: its chunks replayed from the captured
+    round (`graphs.click_rounds`), with the launch checks of
+    `_launch_checks` (per_round, rounds, traced) and each chunk's replays
+    counted,
+    then with the eager `batched_click_scan` in graphs.click_rounds' place
+    (its wrapper counts per_round x rounds). Returns ({"replayed" /
+    "eager": (curves, click slots per object, stats, wrapper counts)},
+    replays per chunk of the replayed run)."""
     from pvpuformer_tpu_torch.inference import batched, graphs
-    eager_scan = batched.batched_click_scan
-    replays, per_chunk = [0], []
-
-    def counting(replay):
-        def counted(self):
-            replays[0] += 1
-            return replay(self)
-        return counted
+    per_chunk = []
 
     def per_chunk_count(scan):
         def run(*args):
-            n0 = replays[0]
+            n0 = graphs.rounds["replayed"]
             out = scan(*args)
-            per_chunk.append(replays[0] - n0)
+            per_chunk.append(graphs.rounds["replayed"] - n0)
             return out
         return run
 
-    runs = {}
-    for name in ("replayed", "eager"):
-        with contextlib.ExitStack() as stack:
-            if name == "replayed":
-                stack.enter_context(_patched(graphs._Round, "replay",
-                                             counting))
-                stack.enter_context(_patched(graphs, "click_rounds",
-                                             per_chunk_count))
-            else:
-                stack.enter_context(_patched(graphs, "click_rounds",
-                                             lambda scan: eager_scan))
-            points = stack.enter_context(_batched_points(ds, bev))
-            _zero_counts()
+    def replayed():
+        per_chunk.clear()
+        with _patched(graphs, "click_rounds", per_chunk_count), \
+                _batched_points(ds, bev) as points:
             curves, _, stats = bev.evaluate(ds, max_clicks=clicks,
                                             max_iou_thr=0.95)
-            counts = _counts()
-        runs[name] = (curves, points, stats, counts)
-    return runs, per_chunk
+        return curves, points, stats, list(per_chunk)
+
+    (curves, points, stats, chunks), counts, _ = _launch_checks(
+        replayed, per_round, rounds, what, traced=traced)
+    runs = {"replayed": (curves, points, stats, counts)}
+    with _patched(graphs, "click_rounds",
+                  lambda scan: batched.batched_click_scan), \
+            _batched_points(ds, bev) as points:
+        _zero_counts()
+        curves, _, stats = bev.evaluate(ds, max_clicks=clicks,
+                                        max_iou_thr=0.95)
+        counts = _counts()
+    runs["eager"] = (curves, points, stats, counts)
+    return runs, chunks
 
 
 def _click_order(points):
@@ -1706,31 +1853,37 @@ def phase_batched(dev, card: str):
                             mcfg.num_max_points,
                             pred._canvas(*sample.image.shape[:2]), dev)
 
-    def run(label, fn):
-        """fn() -> (curves, elapsed, device rounds); the counts of this
-        run alone, checked per round."""
-        _zero_counts()
-        curves, elapsed, rounds = fn()
-        torch.cuda.synchronize()
-        counts = _counts()
+    per_round = {"fused_attention": depth, "minplus_rows": 1,
+                 "fused_ln_mlp": depth}
+    bounds = np.cumsum([0] + [n for n, _, _ in parts]).tolist()
+
+    def chunk_parts(bev):
+        """`bev`'s run again, one chunk at a time (a slice of at most B
+        samples of one canvas bucket; one object each): (call, rounds)."""
+        b = bev.batch_size
+        return [(lambda lo=lo, hi=min(lo + b, hi): bev.evaluate(
+                    _Slice(ds, lo, hi), max_clicks=EVAL_CLICKS,
+                    max_iou_thr=0.95), EVAL_CLICKS)
+                for lo_g, hi in zip(bounds, bounds[1:])
+                for lo in range(lo_g, hi, b)]
+
+    def run(label, fn, rounds, traced=None):
+        """fn() -> (curves, elapsed) of `rounds` rounds, with the launch
+        checks of `_launch_checks`."""
+        (curves, elapsed), counts, device = _launch_checks(
+            fn, per_round, rounds, label, traced=traced)
         _curves_ok(curves, n_obj, EVAL_CLICKS)
         clicks = sum(map(len, curves))
-        want = {k: 0 for k in counts}
-        want.update(fused_attention=depth * rounds, minplus_rows=rounds,
-                    fused_ln_mlp=depth * rounds)
-        per_round = {k: v / rounds for k, v in counts.items() if v}
         res = {"curves": curves, "objects_per_sec": n_obj / elapsed,
                "clicks_per_sec": clicks / elapsed,
                "ms_per_round": elapsed / rounds * 1e3, "rounds": rounds,
-               "launches_per_round": per_round}
+               "launches_per_round": {k: v / rounds
+                                      for k, v in device.items() if v},
+               "wrapper_calls": {k: v for k, v in counts.items() if v}}
         _log(f"  {label}: {n_obj} objects, {clicks} clicks in {rounds} "
              f"rounds, {elapsed:.3f} s: {res['objects_per_sec']:.3f} "
              f"objects/s, {res['clicks_per_sec']:.2f} clicks/s, "
-             f"{res['ms_per_round']:.2f} ms per round; launches per round "
-             f"{per_round} ({card})")
-        if counts != want:
-            raise AssertionError(f"{label}: launches {counts}, the path "
-                                 f"calls the wrappers {want} times")
+             f"{res['ms_per_round']:.2f} ms per round ({card})")
         return res
 
     pred = _recording_predictor(model, pcfg, dev)
@@ -1739,10 +1892,19 @@ def phase_batched(dev, card: str):
     pred.log.clear()
 
     def sequential():
-        curves, elapsed = evaluate_dataset(ds, pred, max_iou_thr=0.95,
-                                           max_clicks=EVAL_CLICKS)
-        return curves, elapsed, n_obj * EVAL_CLICKS
-    summary = {"sequential": run("sequential", sequential)}
+        return evaluate_dataset(ds, pred, max_iou_thr=0.95,
+                                max_clicks=EVAL_CLICKS)
+
+    def sequential_part(i):
+        """The sequential run's sample i again (the same sessions, through
+        the same captured rounds): (the call, its rounds)."""
+        return (lambda: evaluate_dataset(
+            _Slice(ds, i, i + 1), _recording_predictor(model, pcfg, dev),
+            max_iou_thr=0.95, max_clicks=EVAL_CLICKS),
+            len(ds.get_sample(i).objects_ids) * EVAL_CLICKS)
+    summary = {"sequential": run(
+        "sequential", sequential, n_obj * EVAL_CLICKS,
+        [sequential_part(i) for i in range(len(ds))])}
     seq_clicks = torch.stack(pred.log).cpu()
     side = torch.cuda.Stream()
     for b in EVAL_BATCHES:
@@ -1756,10 +1918,13 @@ def phase_batched(dev, card: str):
             with _batched_points(ds, bev) as clicks:
                 curves, elapsed, stats = bev.evaluate(
                     ds, max_clicks=EVAL_CLICKS, max_iou_thr=0.95)
-            box.update(curves=curves, clicks=clicks, stats=stats)
-            n_chunks = sum(-(-n // b) for n, _, _ in parts)
-            return curves, elapsed, n_chunks * EVAL_CLICKS
-        res = run(f"batched B={b}", batched)
+            box.setdefault("curves", curves)
+            box.setdefault("clicks", clicks)
+            box.setdefault("stats", stats)
+            return curves, elapsed
+        n_chunks = sum(-(-n // b) for n, _, _ in parts)
+        res = run(f"batched B={b}", batched, n_chunks * EVAL_CLICKS,
+                  chunk_parts(bev))
         same = [torch.equal(c, s) for c, s in
                 zip(box["clicks"], seq_clicks)]
         # the click (1-based) where each other session leaves the
@@ -1793,17 +1958,18 @@ def phase_batched(dev, card: str):
     for mode in (0, 1, 2):
         cfg_v = dataclasses.replace(pcfg, prompt_mode=mode)
         name = _variant(mode, True)
-        runs, per_chunk = _chunk_runs(
-            ds, BatchedEvaluator(model, cfg_v, b, device=dev), EVAL_CLICKS)
-        (rc, rp, rs, rn), (ec, ep, es, en) = runs["replayed"], runs["eager"]
-        _curves_ok(rc, n_obj, EVAL_CLICKS)
         n_cc, n_cm, n_mp = PROMPT_VARIANTS.get((mode, True), (0, 0, 1))
         rounds = n_chunks * EVAL_CLICKS
-        want = {k: 0 for k in rn}
-        want.update(fused_attention=depth * rounds,
-                    fused_ln_mlp=depth * rounds,
-                    minplus_rows=n_mp * rounds, cc_labels=n_cc * rounds,
-                    component_max=n_cm * rounds)
+        want = {"fused_attention": depth, "fused_ln_mlp": depth,
+                "minplus_rows": n_mp, "cc_labels": n_cc,
+                "component_max": n_cm}
+        bev = BatchedEvaluator(model, cfg_v, b, device=dev)
+        runs, per_chunk = _chunk_runs(ds, bev, EVAL_CLICKS, want, rounds,
+                                      f"{name} at B={b}, replayed",
+                                      chunk_parts(bev))
+        (rc, rp, rs, rn), (ec, ep, es, en) = runs["replayed"], runs["eager"]
+        _curves_ok(rc, n_obj, EVAL_CLICKS)
+        want = {k: want.get(k, 0) * rounds for k in en}
         same = (len(rc) == len(ec) == len(rp) == len(ep) == n_obj
                 and all(np.array_equal(x, y) for x, y in zip(rc, ec))
                 and all(torch.equal(x, y) for x, y in zip(rp, ep)))
@@ -1812,8 +1978,7 @@ def phase_batched(dev, card: str):
         res = {"replayed_clicks_per_sec": rs["clicks_per_sec"],
                "eager_clicks_per_sec": es["clicks_per_sec"],
                "replays_per_chunk": per_chunk,
-               "launches_per_round": {k: v / rounds for k, v in rn.items()
-                                      if v}}
+               "wrapper_calls_replayed": {k: v for k, v in rn.items() if v}}
         if mode:
             seq_pred = _recording_predictor(model, cfg_v, dev)
             seq, seq_s = evaluate_dataset(ds, seq_pred, max_iou_thr=0.95,
@@ -1834,10 +1999,9 @@ def phase_batched(dev, card: str):
         if not (same and every):
             raise AssertionError(f"{name} at B={b}: replayed chunks differ "
                                  f"from eager ones or did not replay")
-        if not rn == en == want:
-            raise AssertionError(f"{name} at B={b}: launches replayed {rn}, "
-                                 f"eager {en}, the path calls the wrappers "
-                                 f"{want} times")
+        if en != want:
+            raise AssertionError(f"{name} at B={b}: eager launches {en}, the "
+                                 f"path calls the wrappers {want} times")
         summary[f"{name} replay vs eager B={b}"] = res
     # the batched mode's pass-1 form (resolve_batched_cfg: "dense") beside
     # the single-session "scan" form, bit-identical, at B = 16's masks
@@ -1855,10 +2019,119 @@ def phase_batched(dev, card: str):
         {"phase11": summary, "pass1_ms": p1, "card": card}))
 
 
+# phase 11's graph-cache workload: six canvas buckets met round robin
+CACHE_SIZES = ((448, 448), (300, 500), (384, 512), (500, 300), (256, 320),
+               (480, 640))
+CACHE_PASSES = 3
+CACHE_CLICKS = (1, 3, 20)
+CACHE_GRAPHS = (4, 8)     # cache sizes compared (graphs.MAX_GRAPHS is 8)
+
+
+def phase_graph_cache(dev, card: str):
+    """Phase 11: what the captured rounds' cache (inference/graphs.py)
+    costs and saves at ViT-B@448 bf16, random weights (seed 0).
+    (a) Per key of the click path (B = 1), a scribble variant (mode 2
+    multi, B = 1) and batched click rounds (B = 8): the host-clock ms of
+    the key's first round (eager), second (captured, then replayed) and
+    third (replayed), each ending in its IoU read, and the memory the card
+    reserved after each (measured after one untimed pass over the keys).
+    (b) Sequential NoC evaluation (`evaluate_dataset` through `Predictor`)
+    of Synthetic samples in six canvas buckets taken round robin, so each
+    bucket comes back only after the five others, CACHE_PASSES times, in
+    sessions cut at 1, 3 and 20 clicks (max_clicks: the random weights
+    cross no threshold): eager (graphs.replayed patched to False) and
+    replayed with MAX_GRAPHS patched to each of CACHE_GRAPHS, each from an
+    empty cache: seconds, ms per click, the rounds run eagerly, captured
+    and replayed. Prints one {"graph_cache": ...} JSON line."""
+    import torch
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference.batched import resolve_batched_cfg
+    from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
+    from pvpuformer_tpu_torch.inference.evaluation import evaluate_dataset
+    from pvpuformer_tpu_torch.inference.predictor import (NOISE_SEED,
+                                                         Predictor,
+                                                         PredictorConfig,
+                                                         init_session,
+                                                         stack_states)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+
+    mcfg = vpu_base_config(dtype=torch.bfloat16)
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+    pcfg = PredictorConfig(model=mcfg, target_size=(448, 448),
+                           with_flip=True)
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    keys = (("click B=1", pcfg, 1),
+            ("mode 2 multi B=1", dataclasses.replace(pcfg, prompt_mode=2), 1),
+            ("click B=8", resolve_batched_cfg(pcfg), 8))
+    out = {"card": card, "max_graphs": graphs.MAX_GRAPHS, "keys": {}}
+    for timed in (False, True):
+        graphs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for label, cfg, b in keys:
+            states = stack_states([init_session(
+                image, gt, mcfg.num_max_points, (448, 448), dev)] * b)
+            gen = torch.Generator().manual_seed(NOISE_SEED)
+            ms, reserved = [], []
+            for _ in range(3):
+                t = time.perf_counter()
+                states, iou = graphs.click_rounds(model, cfg, states, 1, gen)
+                iou.cpu()
+                ms.append((time.perf_counter() - t) * 1e3)
+                reserved.append(torch.cuda.memory_reserved() / 2 ** 30)
+            if timed:
+                out["keys"][label] = {
+                    "first_round_eager_ms": ms[0],
+                    "second_round_capture_and_replay_ms": ms[1],
+                    "third_round_replay_ms": ms[2],
+                    "reserved_gib_after_each": reserved}
+                _log(f"  {label}: rounds 1 (eager) / 2 (captured, replayed)"
+                     f" / 3 (replayed) {ms[0]:.2f} / {ms[1]:.2f} / "
+                     f"{ms[2]:.2f} ms; memory reserved after each "
+                     f"{np.round(reserved, 3).tolist()} GiB ({card})")
+
+    parts = [SyntheticDataset(n_samples=1, hw=hw, seed=100 * p + i)
+             for p in range(CACHE_PASSES)
+             for i, hw in enumerate(CACHE_SIZES)]
+    ds = _Concat(parts)
+    pred = Predictor(model, pcfg, device=dev)
+    runs = {}
+    for clicks in CACHE_CLICKS:
+        for label, replay, size in (
+                ("eager", False, graphs.MAX_GRAPHS),
+                *((f"replayed, {n} graphs", True, n) for n in CACHE_GRAPHS)):
+            graphs.clear()
+            r0 = dict(graphs.rounds)
+            with _patched(graphs, "replayed",
+                          lambda f, replay=replay: lambda device: replay), \
+                    _patched(graphs, "MAX_GRAPHS", lambda n, size=size: size):
+                curves, elapsed = evaluate_dataset(
+                    ds, pred, max_iou_thr=0.95, max_clicks=clicks)
+                torch.cuda.synchronize()
+            n = sum(map(len, curves))
+            res = {"seconds": elapsed, "clicks": n, "objects": len(curves),
+                   "ms_per_click": elapsed / n * 1e3,
+                   "rounds": {k: graphs.rounds[k] - r0[k] for k in r0},
+                   "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+            runs[f"{clicks} clicks, {label}"] = res
+            _log(f"  {len(curves)} objects in {len(CACHE_SIZES)} buckets, "
+                 f"sessions of {clicks} clicks, {label}: {elapsed:.3f} s, "
+                 f"{res['ms_per_click']:.2f} ms per click, rounds "
+                 f"{res['rounds']} ({card})")
+    graphs.clear()
+    out["buckets"] = runs
+    _log("  graph cache: " + json.dumps({"graph_cache": out}))
+    del pred, model
+    torch.cuda.empty_cache()
+
+
 def phase_presets(dev, card: str):
     """Phase 12: one 3-click bf16 session each of ViT-L@448 and
-    ViT-H@448 (patch 14, head dim 80), random weights, with launch counts
-    equal to the wrapper calls."""
+    ViT-H@448 (patch 14, head dim 80), random weights, with the launch
+    checks of `_launch_checks`."""
     import torch
     from pvpuformer_tpu_torch.inference.predictor import (Predictor,
                                                          PredictorConfig)
@@ -1877,32 +2150,28 @@ def phase_presets(dev, card: str):
         pred = Predictor(model, PredictorConfig(
             model=mcfg, target_size=mcfg.crop_size, with_flip=True),
             device=dev)
-        pred.set_input(image, gt)
-        _zero_counts()
-        per_click, ious = [], []
-        for _ in range(PRESET_CLICKS):
-            t = time.perf_counter()
-            ious.append(pred.next_click())             # float(iou) syncs
-            per_click.append((time.perf_counter() - t) * 1e3)
-        counts = _counts()
-        depth, c = mcfg.backbone.depth, PRESET_CLICKS
-        want = {k: 0 for k in counts}
-        want.update(fused_attention=depth * c, minplus_rows=c,
-                    fused_ln_mlp=depth * c)
-        ious = np.asarray(ious)
+        depth = mcfg.backbone.depth
+
+        def session():
+            pred.set_input(image, gt)
+            per_click, ious = [], []
+            for _ in range(PRESET_CLICKS):
+                t = time.perf_counter()
+                ious.append(pred.next_click())         # float(iou) syncs
+                per_click.append((time.perf_counter() - t) * 1e3)
+            return np.asarray(ious), per_click
+        (ious, per_click), _, _ = _launch_checks(
+            session, {"fused_attention": depth, "minplus_rows": 1,
+                      "fused_ln_mlp": depth}, PRESET_CLICKS, f"{name}@448")
         _log(f"  {name}@448 (D {mcfg.backbone.embed_dim}, depth {depth}, "
              f"patch {mcfg.backbone.patch_size[0]}, head dim "
              f"{mcfg.backbone.embed_dim // mcfg.backbone.num_heads}): IoUs "
              f"{np.round(ious, 4).tolist()}, ms per click "
-             f"{np.round(per_click, 2).tolist()} (the first warms up; "
-             f"weights built in {init_s:.1f} s) ({card}); launches "
-             f"{ {k: v for k, v in counts.items() if v} }")
+             f"{np.round(per_click, 2).tolist()} (the first eager, the "
+             f"second captured; weights built in {init_s:.1f} s) ({card})")
         if not (np.isfinite(ious).all() and (ious >= 0).all()
                 and (ious <= 1).all()):
             raise AssertionError(f"{name}: bad IoU curve {ious}")
-        if counts != want:
-            raise AssertionError(f"{name}: launches {counts}, the path calls "
-                                 f"the wrappers {want} times")
         del pred, model
         torch.cuda.empty_cache()
 
@@ -2477,21 +2746,16 @@ def _serve_session(base, image, script, out, key):
 
 
 def _user_session(pred, image, gt, clicks):
-    """User clicks through a Predictor: (IoUs against gt, ms per round,
-    launch counts per round, each read right after its round, and each
-    round's probabilities)."""
-    import torch
+    """User clicks through a Predictor: (IoUs against gt, ms per round and
+    each round's probabilities)."""
     pred.set_input(image, gt)
-    ious, ms, counts, probs = [], [], [], []
+    ious, ms, probs = [], [], []
     for y, x, pos in clicks:
-        _zero_counts()
         t = time.perf_counter()
         ious.append(pred.user_click(y, x, pos))        # float(iou) syncs
         ms.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
-        counts.append(_counts())
         probs.append(pred.state.prev_probs)
-    return np.asarray(ious), ms, counts, probs
+    return np.asarray(ious), ms, probs
 
 
 def _user_eager(pred, image, gt, clicks):
@@ -2629,17 +2893,21 @@ def phase_serving(dev, card: str):
     res = {}
     for name, int8 in (("bf16", False), ("int8", True)):
         pred = Predictor(model, pcfg, device=dev, int8=int8)
-        _user_session(pred, images[0], gt, USER_CLICKS[:2])      # warm-up
-        ious, ms, counts, probs = _user_session(pred, images[0], gt,
-                                                USER_CLICKS)
+        want = {"fused_attention": depth,
+                "fused_ln_mlp": 0 if int8 else depth}
+        # a warm-up session (its first round eager, its second captured),
+        # then the session measured, replayed
+        _, counts, _ = _launch_checks(
+            lambda: _user_session(pred, images[0], gt, USER_CLICKS[:2]),
+            want, 2, f"{name} user clicks, warm-up")
+        add(counts)
+        (ious, ms, probs), counts, _ = _launch_checks(
+            lambda: _user_session(pred, images[0], gt, USER_CLICKS),
+            want, len(USER_CLICKS), f"{name} user clicks")
+        add(counts)
         e_ious, e_probs = _user_eager(pred, images[0], gt, USER_CLICKS)
         same = np.array_equal(ious, e_ious) and all(
             torch.equal(a, b) for a, b in zip(probs, e_probs))
-        want = {"fused_attention": depth,
-                "fused_ln_mlp": 0 if int8 else depth}
-        _round_counts(counts, want, f"{name} user click")
-        for c in counts:
-            add(c)
         if not (np.isfinite(ious).all() and (ious >= 0).all()
                 and (ious <= 1).all()):
             raise AssertionError(f"{name}: bad IoUs {ious}")
@@ -2651,8 +2919,8 @@ def phase_serving(dev, card: str):
         res[name] = ious, ms
         _log(f"  {name} user clicks: p50 {np.median(ms):.2f} ms per round "
              f"over {len(ms)} rounds ({card}); IoUs "
-             f"{np.round(ious, 4).tolist()}; launches per round {want}; "
-             f"the replayed rounds' masks and IoUs "
+             f"{np.round(ious, 4).tolist()}; the replayed rounds' masks "
+             f"and IoUs "
              f"{'bit-identical to' if same else 'DIFFER from'} the eager "
              f"user_click_step's; one more user_click_step captured into a "
              f"CUDA graph (no host sync)")
@@ -2775,6 +3043,7 @@ def main() -> int:
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     phase_batched(dev, smi)
     torch.cuda.empty_cache()
+    phase_graph_cache(dev, smi)
     _log("[12/15] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     phase_presets(dev, smi)
     graphs.clear()

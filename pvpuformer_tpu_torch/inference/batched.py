@@ -8,15 +8,15 @@ forward runs at batch 2B with the launches of one session. Every prompt
 mode runs so; each session draws its own sequential session's prompt
 noise. Sessions are grouped by canvas bucket; each group's last chunk is
 padded to the batch size with copies of its last session, whose results
-are dropped. On the card a chunk's rounds are replayed from a captured
-round (`graphs.click_rounds`); elsewhere they run eagerly
-(`batched_click_scan`).
+are dropped. A chunk's rounds run through `graphs.click_rounds`: replayed
+from a captured round on the card, the eager `batched_click_scan`
+elsewhere.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -25,23 +25,8 @@ from ..models.vpu import VPUModel
 from ..nn import inference_model, resolve_device
 from . import graphs
 from .predictor import (NOISE_SEED, PredictorConfig, SessionState,
-                        batched_click_step, init_session, stack_states)
-
-
-def batched_click_scan(model: VPUModel, cfg: PredictorConfig,
-                       states: SessionState, num_clicks: int,
-                       gen: Optional[torch.Generator] = None):
-    """`num_clicks` rounds of a batch of sessions. Returns (final states,
-    ious (B, num_clicks)). The prompt draws of all rounds come from `gen`
-    (None: one generator seeded NOISE_SEED for the scan), as each session's
-    own `click_scan` draws them."""
-    if gen is None:
-        gen = torch.Generator().manual_seed(NOISE_SEED)
-    ious = []
-    for _ in range(num_clicks):
-        states, iou = batched_click_step(model, cfg, states, gen)
-        ious.append(iou)
-    return states, torch.stack(ious, 1)
+                        init_session, stack_states)
+from .predictor import batched_click_scan  # noqa: F401  (the eager scan)
 
 
 def resolve_batched_cfg(cfg: PredictorConfig) -> PredictorConfig:
@@ -89,8 +74,6 @@ class BatchedEvaluator:
                 order += 1
 
         curves: List = [None] * order
-        scan = (graphs.click_rounds if graphs.replayed(self.device)
-                else batched_click_scan)
         start = time.time()
         total_clicks = 0
         for items in groups.values():
@@ -99,8 +82,9 @@ class BatchedEvaluator:
                 pad = self.batch_size - len(chunk)
                 states = stack_states([st for _, st in chunk]
                                       + [chunk[-1][1]] * pad)
-                _, ious = scan(self.model, self.cfg, states, max_clicks,
-                               torch.Generator().manual_seed(NOISE_SEED))
+                _, ious = graphs.click_rounds(
+                    self.model, self.cfg, states, max_clicks,
+                    torch.Generator().manual_seed(NOISE_SEED))
                 ious = ious.cpu().numpy()
                 for (idx, _), curve in zip(chunk, ious):
                     over = np.nonzero(curve[min_clicks - 1:] >= max_iou_thr)[0]

@@ -2,16 +2,18 @@
 compiled session (pvpuformer_tpu/inference/predictor.py: `click_step`,
 `user_click_step` and `click_scan` under `jax.jit`, one program per shape).
 
-A round, `predictor._click_step` over a batch of sessions or one
-`predictor._user_click_step`, is captured once per (model, where its
-weights lie, PredictorConfig, canvas shape, batch size, kind) into a
-`torch.cuda.CUDAGraph` and replayed for every later round of that key: a
-session of n clicks is n replays. The first round of a new key runs
-eagerly on the capture stream (its launches are that round's own, and it
-sets up cuBLAS's workspace for that stream); the capture follows it and
-launches nothing. The eager functions of `predictor` stay the definition
-and the CPU path; `Predictor` and `BatchedEvaluator` call this module
-whenever their device is CUDA (`replayed`).
+`click_rounds` and `user_click_round` are the one entry of the session
+classes (`Predictor`, `BatchedEvaluator`). Off the card they run the eager rounds
+of `predictor`, which stay the definition. On the card a round,
+`predictor._click_step` over a batch of sessions or one
+`predictor._user_click_step`, is captured into a `torch.cuda.CUDAGraph` per
+key (the model, where each of its parameters and buffers lies, the
+PredictorConfig, canvas shape, batch size, kind) and replayed. A key's
+first round runs eagerly on the capture stream, which also sets up what a
+capture needs there (cuBLAS's workspace for the stream); its second round,
+in the same run or a later one, is captured and replayed; later rounds
+replay. So a one-click session on a new canvas pays no capture, and a
+longer one pays it once.
 
 What a replay needs besides the graph:
   * static inputs: the state is copied in before a run of rounds, each
@@ -21,10 +23,13 @@ What a replay needs besides the graph:
   * the round's other inputs, the prompt draws or a person's click: made
     outside the graph (the draws on the host, from the caller's generator
     in the eager loop's order) and copied into static buffers before each
-    replay; a draw inside the capture would bake in a freed pinned buffer;
-  * the launch counters: a kernel wrapper counts its Python calls, so a
-    capture counts launches that did not happen. Each wrapper's count at
-    capture is taken back and added at every replay.
+    replay; a draw inside the capture would bake in a freed pinned buffer.
+
+The kernel wrappers count their calls where they launch: in the eager
+round and in the capture (which records the launches into the graph). A
+replay makes no call, so it counts nothing; what a replay runs on the card
+shows in a profiler trace. `rounds` counts the rounds run eagerly,
+captured and replayed.
 
 Graphs live in a small LRU cache (MAX_GRAPHS) and share one memory pool
 per device. No two runs overlap: one lock covers copy-in, replays and
@@ -50,16 +55,14 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-from ..ops.attention import flash_attention
-from ..ops.cc import cc_labels, component_max
-from ..ops.edt_minplus import minplus_rows
-from ..ops.fused_attention import fused_attention
-from ..ops.fused_mlp import fused_ln_mlp
 from . import predictor as _pred
 
-MAX_GRAPHS = 4
-WRAPPERS = (fused_attention, flash_attention, minplus_rows, fused_ln_mlp,
-            cc_labels, component_max)
+# Eight graphs: on the H100 a batch-1 ViT-B@448 graph adds ~0.02 GiB to
+# the shared pool and a batch-8 one ~0.3 GiB, and short sessions over six
+# canvas buckets met in turn ran faster with 8 than with 4
+# (chip_smoke.phase_graph_cache, PERF.md section 5).
+MAX_GRAPHS = 8
+MAX_SEEN = 64             # keys met once, remembered for their capture
 
 Extra = Dict[str, torch.Tensor]
 
@@ -97,58 +100,69 @@ class _Device:
         cur.wait_stream(self.stream)
         return out
 
-    def capture(self, fn):
+    def capture(self, fn, fresh: bool):
         """fn() captured into a CUDA graph on the capture stream, in the
-        shared pool: (the graph, fn's outputs)."""
+        shared pool (a new one if `fresh`): (the graph, fn's outputs). Not
+        `torch.cuda.graph`, which first empties the allocator's device
+        cache and the pinned host cache: every later allocation of the
+        process would then be a fresh cudaMalloc / cudaHostAlloc (the
+        prompt draws' copies use pinned memory). That emptying is also
+        what frees a pool no graph holds any more, and the allocator
+        refuses to capture into such a pool: once every graph of the card
+        is dropped, the next capture takes a new pool (the old one's
+        memory goes with `torch.cuda.empty_cache()`)."""
+        if fresh:
+            self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(self.pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
         return graph, out
 
 
 class _Round:
     """One captured round: the graph, its static inputs (`state`, `extra`),
-    which state fields the round writes, what it returns (held so that its
-    memory stays the graph's) and each wrapper's launches per replay."""
+    which state fields the round writes and what it returns (held so that
+    its memory stays the graph's)."""
 
-    def __init__(self, model, graph, state, changed, extra, out, iou,
-                 counts):
+    def __init__(self, model, graph, state, changed, extra, out, iou):
         self.model = weakref.ref(model)
         self.graph = graph
         self.state, self.changed, self.extra = state, changed, extra
         self.out, self.iou = out, iou
-        self.counts = counts
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for w, n in self.counts.items():
-            w.launches += n
 
 
 _lock = threading.Lock()
 _graphs: "OrderedDict[tuple, _Round]" = OrderedDict()
+_seen: "OrderedDict[tuple, None]" = OrderedDict()
 _devices: Dict[torch.device, _Device] = {}
+rounds = {"eager": 0, "captured": 0, "replayed": 0}
 
 
 def replayed(device: torch.device) -> bool:
-    """Whether the session drivers replay captured rounds on `device`: on
-    the card. The CPU runs the eager rounds."""
+    """Whether rounds on `device` are replayed: on the card. The CPU runs
+    the eager rounds."""
     return device.type == "cuda"
 
 
 def clear() -> None:
     """Drop every captured round (their pool's memory is released by
-    `torch.cuda.empty_cache()` once no graph uses it)."""
+    `torch.cuda.empty_cache()` once no graph uses it) and every key met."""
     with _lock:
         _graphs.clear()
+        _seen.clear()
 
 
-def _weights_at(model) -> int:
-    """Where the model's weights lie: an in-place cast or move gives them
-    new storage, and a graph reads the storage it was captured with."""
-    p = next(model.parameters(), None)
-    return 0 if p is None else p.data_ptr()
+def _weights_at(model) -> tuple:
+    """Where the model's tensors lie: a graph reads the storage of every
+    parameter and buffer it was captured with, and an in-place cast or
+    move gives them new storage."""
+    return tuple(t.data_ptr() for t in
+                 (*model.parameters(), *model.buffers()))
 
 
 def _key(model, cfg, kind: str, states) -> tuple:
@@ -175,6 +189,17 @@ def _lookup(key: tuple, model) -> Optional[_Round]:
     return r
 
 
+def _first_meeting(key: tuple) -> bool:
+    """Whether `key` is met for the first time (then it is remembered)."""
+    if key in _seen:
+        _seen.move_to_end(key)
+        return False
+    _seen[key] = None
+    while len(_seen) > MAX_SEEN:
+        _seen.popitem(last=False)
+    return True
+
+
 def _insert(key: tuple, r: _Round) -> None:
     _graphs[key] = r
     for k in [k for k, v in _graphs.items() if v.model() is None]:
@@ -186,8 +211,8 @@ def _insert(key: tuple, r: _Round) -> None:
 def _capture(model, key: tuple, dev: _Device, states, extra: Extra,
              body: Callable) -> _Round:
     """Capture body(state, extra) -> (state, ious) on static buffers (copies
-    of `states` / `extra`), ending with the new state copied into the
-    static state."""
+    of `states` / `extra`, so the round is ready to replay), ending with the
+    new state copied into the static state."""
     state = _pred.SessionState(*(t.clone() for t in states))
     extra = {k: v.clone() for k, v in extra.items()}
 
@@ -197,22 +222,21 @@ def _capture(model, key: tuple, dev: _Device, states, extra: Extra,
             if o is not s:
                 s.copy_(o)
         return out, iou
-    before = [w.launches for w in WRAPPERS]
-    graph, (out, iou) = dev.capture(round_)
+    # no graph of this card left: the pool may have no holder
+    fresh = all(k[-1] != key[-1] for k in _graphs)
+    graph, (out, iou) = dev.capture(round_, fresh)
     changed = tuple(o is not s for o, s in zip(out, state))
-    counts = {}
-    for w, n in zip(WRAPPERS, before):
-        counts[w], w.launches = w.launches - n, n
-    r = _Round(model, graph, state, changed, extra, out, iou, counts)
+    r = _Round(model, graph, state, changed, extra, out, iou)
     _insert(key, r)
+    rounds["captured"] += 1
     return r
 
 
 def _rounds(model, cfg, kind: str, body: Callable, states,
             extras: Iterable[Extra]) -> Tuple[object, List[torch.Tensor]]:
     """One round of `body` per item of `extras` (a round's other inputs,
-    made when the round is due), replayed from the captured round of this
-    key (captured after an eager first round where there is none).
+    made when the round is due): a key's first round eagerly, later ones
+    replayed from its captured round (captured when there is none).
     Returns (the final states, fresh tensors; each round's ious)."""
     device = states.image.device
     key = _key(model, cfg, kind, states)
@@ -221,19 +245,23 @@ def _rounds(model, cfg, kind: str, body: Callable, states,
         r = _lookup(key, model)
         loaded = False
         for extra in extras:
-            if r is None:
+            if r is None and _first_meeting(key):
                 states, iou = dev.eager(lambda: body(states, extra))
+                rounds["eager"] += 1
+                ious.append(iou)
+                continue
+            if r is None:
                 r = _capture(model, key, dev, states, extra, body)
             else:
                 if not loaded:
                     for s, t in zip(r.state, states):
                         s.copy_(t)
-                    loaded = True
                 for k, v in r.extra.items():
                     v.copy_(extra[k])
-                r.replay()
-                iou = r.iou.clone()
-            ious.append(iou)
+            loaded = True
+            r.graph.replay()
+            rounds["replayed"] += 1
+            ious.append(r.iou.clone())
         if loaded:
             states = _pred.SessionState(*(
                 s.clone() if ch else t
@@ -243,14 +271,17 @@ def _rounds(model, cfg, kind: str, body: Callable, states,
 
 def click_rounds(model, cfg, states, num_clicks: int,
                  gen: Optional[torch.Generator] = None):
-    """`num_clicks` oracle rounds of a batch of sessions on the card
-    (`predictor.stack_states`; one session as `predictor._as_batch`), the
-    same as `batched.batched_click_scan`: (final states, ious (B,
-    num_clicks)). The prompt draws come from `gen` (None: a generator
-    seeded NOISE_SEED), one per round, as the eager loop draws them."""
+    """`num_clicks` oracle rounds of a batch of sessions
+    (`predictor.stack_states`; one session as `predictor._as_batch`):
+    `predictor.batched_click_scan`, replayed on the card. Returns (final
+    states, ious (B, num_clicks)). The prompt draws come from `gen` (None:
+    a generator seeded NOISE_SEED), one per round, as the eager loop draws
+    them."""
+    device = states.image.device
+    if not replayed(device):
+        return _pred.batched_click_scan(model, cfg, states, num_clicks, gen)
     if gen is None:
         gen = torch.Generator().manual_seed(_pred.NOISE_SEED)
-    device = states.image.device
 
     def draws():
         for _ in range(num_clicks):
@@ -265,13 +296,17 @@ def click_rounds(model, cfg, states, num_clicks: int,
 
 def user_click_round(model, cfg, state, y: float, x: float,
                      is_positive: bool):
-    """One round of one session with a person's click on the card, the
-    same as `predictor.user_click_step`: (new state, iou)."""
+    """One round of one session with a person's click:
+    `predictor.user_click_step`, replayed on the card. Returns (new state,
+    iou)."""
     device = state.image.device
     click = {"y": torch.full((), float(y), device=device),
              "x": torch.full((), float(x), device=device),
              "pos": torch.full((), bool(is_positive), dtype=torch.bool,
                                device=device)}
+    if not replayed(device):
+        return _pred.user_click_step(model, cfg, state, click["y"],
+                                     click["x"], click["pos"])
 
     def body(st, c):
         return _pred._user_click_step(model, cfg, st, c["y"], c["x"],

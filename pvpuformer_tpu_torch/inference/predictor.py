@@ -8,18 +8,18 @@ click runs:
   4. disk maps + PPuE click encoding + the VPU forward;
   5. flip-average, sigmoid, paste-back into the canvas, and IoU.
 The ROI, click slots and counters stay on the device, so a click is one
-stream of launches with no host synchronisation; `click_scan` is a Python
-loop over clicks. Every step is written over a leading session axis: a
-batch of B sessions (`stack_states`) runs one click round of all of them
-with the same launches as one session (`batched_click_step`; the flip-TTA
-model batch is [B originals; B flips]), and `click_step` is the batch of
-one. `prompt_mode` 1 / 2 add box / scribble prompts
-synthesised on the device from the ROI-cropped gt and error masks, in both
-`as_multi_prompts` protocols; their random draws come from a CPU
-`torch.Generator` (`_prompt_noise`), so a session draws the same noise on
-the CPU and on the card, alone or in a batch. These eager functions are
-the definition and the CPU path; on the card `Predictor` replays captured
-rounds (`graphs`).
+stream of launches with no host synchronisation. Every step is written
+over a leading session axis: a batch of B sessions (`stack_states`) runs
+one click round of all of them with the same launches as one session
+(`batched_click_step`; the flip-TTA model batch is [B originals; B
+flips]), and `click_step` is the batch of one; `click_scan` and
+`batched_click_scan` are Python loops over clicks. `prompt_mode` 1 / 2
+add box / scribble prompts synthesised on the device from the ROI-cropped
+gt and error masks, in both `as_multi_prompts` protocols; their random
+draws come from a CPU `torch.Generator` (`_prompt_noise`), so a session
+draws the same noise on the CPU and on the card, alone or in a batch. These eager functions are
+the definition and the CPU path; `Predictor` runs its rounds through
+`graphs`, which replays captured rounds on the card.
 """
 from __future__ import annotations
 
@@ -781,6 +781,22 @@ def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     return state, torch.stack(ious)
 
 
+def batched_click_scan(model: VPUModel, cfg: PredictorConfig,
+                       states: SessionState, num_clicks: int,
+                       gen: Optional[torch.Generator] = None):
+    """`num_clicks` rounds of a batch of sessions. Returns (final states,
+    ious (B, num_clicks)). The prompt draws of all rounds come from `gen`
+    (None: one generator seeded NOISE_SEED for the scan), as each session's
+    own `click_scan` draws them."""
+    if gen is None:
+        gen = torch.Generator().manual_seed(NOISE_SEED)
+    ious = []
+    for _ in range(num_clicks):
+        states, iou = batched_click_step(model, cfg, states, gen)
+        ious.append(iou)
+    return states, torch.stack(ious, 1)
+
+
 # ---------------------------------------------------------------------------
 # host-side driver
 # ---------------------------------------------------------------------------
@@ -791,9 +807,10 @@ class Predictor:
     (None: the card; device="cpu" for the CPU) and cast once to the
     config's compute dtype, in place; with `int8` it runs a quantized copy
     (`nn.inference_model`). Each `set_input` restarts the prompt draws from
-    a CPU generator seeded NOISE_SEED. On the card every round is replayed
-    from a captured round (`graphs`, the counterpart of JAX's per-shape
-    compile cache); on the CPU the rounds run eagerly."""
+    a CPU generator seeded NOISE_SEED. Rounds run through `graphs`: on the
+    card replayed from a round captured per shape (the counterpart of
+    JAX's per-shape compile cache) once a shape's first round has run
+    eagerly; on the CPU eagerly."""
 
     def __init__(self, model: VPUModel, cfg: PredictorConfig, device=None,
                  int8: bool = False):
@@ -828,13 +845,10 @@ class Predictor:
         self._undo = []
 
     def _scan(self, num_clicks: int):
-        if graphs.replayed(self.device):
-            st, ious = graphs.click_rounds(self.model, self.cfg,
-                                           _as_batch(self.state), num_clicks,
-                                           self.gen)
-            return session(st, 0), ious[0]
-        return click_scan(self.model, self.cfg, self.state, num_clicks,
-                          self.gen)
+        st, ious = graphs.click_rounds(self.model, self.cfg,
+                                       _as_batch(self.state), num_clicks,
+                                       self.gen)
+        return session(st, 0), ious[0]
 
     @torch.no_grad()
     def next_click(self) -> float:
@@ -850,13 +864,8 @@ class Predictor:
         mode is off, whatever the calling thread's: the undo stack keeps
         the states, which must not hold a forward's autograd graph."""
         self._undo.append(self.state)
-        if graphs.replayed(self.device):
-            self.state, iou = graphs.user_click_round(
-                self.model, self.cfg, self.state, y, x, is_positive)
-        else:
-            self.state, iou = user_click_step(
-                self.model, self.cfg, self.state, torch.tensor(float(y)),
-                torch.tensor(float(x)), torch.tensor(bool(is_positive)))
+        self.state, iou = graphs.user_click_round(
+            self.model, self.cfg, self.state, y, x, is_positive)
         return float(iou)
 
     @torch.no_grad()

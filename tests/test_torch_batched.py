@@ -23,7 +23,7 @@ from pvpuformer_tpu.inference.datasets import SyntheticDataset as JSynthetic
 from pvpuformer_tpu.inference import predictor as jpred
 from pvpuformer_tpu.inference.predictor import PredictorConfig as JConfig
 from pvpuformer_tpu.utils.serialization import config_to_dict
-from pvpuformer_tpu_torch.inference import batched, predictor as tpred
+from pvpuformer_tpu_torch.inference import batched, graphs, predictor as tpred
 from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
 from pvpuformer_tpu_torch.inference.evaluation import evaluate_dataset
 from pvpuformer_tpu_torch.ops import edt, resize
@@ -64,7 +64,10 @@ def _recorded_scan(monkeypatch, module, name):
 
 
 def _batched_run(monkeypatch, module, evaluator):
-    log = _recorded_scan(monkeypatch, module, "batched_click_scan")
+    # the port's evaluator runs its chunks through graphs.click_rounds
+    log = (_recorded_scan(monkeypatch, module, "batched_click_scan")
+           if module is jbatched else
+           _recorded_scan(monkeypatch, graphs, "click_rounds"))
     curves, _, stats = evaluator.evaluate(_datasets(
         JSynthetic if module is jbatched else SyntheticDataset),
         max_clicks=CLICKS, max_iou_thr=0.95)

@@ -722,8 +722,11 @@ def _zero():
 def test_replayed_rounds_match_eager(cuda, kind):
     """Rounds replayed from a captured round (inference/graphs.py) against
     the eager functions from the same state: every state field and IoU
-    bit-identical (the same ops in the same order), and the kernels'
-    launch counts the same."""
+    bit-identical (the same ops in the same order). The wrappers count the
+    calls of the rounds run eagerly or captured, none of a replay; a
+    profiler trace of a replayed run shows each kernel launched on the card
+    as often as the eager run calls its wrapper."""
+    import chip_smoke
     from pvpuformer_tpu_torch.inference import batched, graphs
     from pvpuformer_tpu_torch.inference import predictor as P
     kw = {"mode2_multi": dict(prompt_mode=2),
@@ -774,18 +777,28 @@ def test_replayed_rounds_match_eager(cuda, kind):
             pred.gen.manual_seed(P.NOISE_SEED)
             ious = pred.run_clicks(4)
             return pred.state, torch.from_numpy(ious)
-    counts = []
-    outs = []
-    for fn in (eager, replayed, replayed):     # capture, then a pure replay
+    n = 3 if kind == "user" else 4                 # rounds per run
+    counts, outs, ran = [], [], []
+    # eager; replayed: an eager round, a capture, replays; replays only
+    for fn in (eager, replayed, replayed):
+        r0 = dict(graphs.rounds)
         _zero()
         with torch.no_grad():
             st, ious = fn()
         torch.cuda.synchronize()
         counts.append(_launches())
+        ran.append({k: graphs.rounds[k] - r0[k] for k in r0})
         outs.append((st, ious.cpu()))
     assert len(graphs._graphs) == 1
-    assert counts[0] == counts[1] == counts[2]
+    assert ran[1:] == [{"eager": 1, "captured": 1, "replayed": n - 1},
+                       {"eager": 0, "captured": 0, "replayed": n}]
     assert counts[0]["fused_attention"] > 0
+    assert all(v % n == 0 for v in counts[0].values())
+    assert counts[1] == {k: v // n * 2 for k, v in counts[0].items()}
+    assert not any(counts[2].values())
+    with torch.no_grad():
+        _, device = chip_smoke._device_launches(replayed)
+    assert device == {k: counts[0][k] for k in device}
     for st, ious in outs[1:]:
         assert torch.equal(ious.float(), outs[0][1].float())
         for name, a, b in zip(P.SessionState._fields, st, outs[0][0]):

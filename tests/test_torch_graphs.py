@@ -3,16 +3,19 @@ stand-in for the card.
 
 A CUDA graph cannot be captured here, so `graphs._Device`, which holds every
 CUDA call of the module, is replaced by `CpuDevice`: its capture runs the
-round once (the recording pass, whose launches the module takes back) and
-keeps it as a function; a replay runs the function again and writes its
-results into the tensors the recording pass returned, as a graph writes its
-outputs where the capture put them. What this holds is the module's own
-logic: static buffers, copy-in and copy-out, the state written back for the
-next replay, the round's other inputs, launch counts per replay, the LRU
-cache and its key. Every result is held exactly against the eager
-functions of `predictor` (the same CPU ops in the same order). The card's
-own replays are held against eager rounds in tests/test_torch_cuda.py and
-chip_smoke.py."""
+round once (the recording pass, which calls the wrappers as a capture does)
+and keeps it as a function; a replay runs the function again and writes
+its results into the tensors the recording pass returned, as a graph
+writes its outputs where the capture put them. A capture executes nothing
+on the card and the module replays right after it, so the stand-in's
+first replay, whose work the recording pass did, does nothing. What this
+holds is the module's own logic: the eager first round of a key, static
+buffers, copy-in and copy-out, the state written back for the next replay,
+the round's other inputs, launch counts (the eager round's and the
+capture's, none per replay), the LRU cache and its key. Every result is
+held exactly against the eager functions of `predictor` (the same CPU ops
+in the same order). The card's own replays are held against eager rounds
+in tests/test_torch_cuda.py and chip_smoke.py."""
 import contextlib
 import dataclasses
 
@@ -38,16 +41,20 @@ def _flat(out):
 class _Replay:
     def __init__(self, fn, out):
         self.fn, self.outputs = fn, _flat(out)
+        self.captured = True
 
     def replay(self):
         """A graph's replay makes no Python call: the wrappers' counters
-        stay as they are (the module adds the round's counts)."""
-        counts = [w.launches for w in graphs.WRAPPERS]
+        stay as they are. The first replay's work was the capture's."""
+        if self.captured:
+            self.captured = False
+            return
+        minplus = edt_minplus.minplus_rows
+        n = minplus.launches
         for kept, new in zip(self.outputs, _flat(self.fn())):
             if kept is not new:
                 kept.copy_(new)
-        for w, n in zip(graphs.WRAPPERS, counts):
-            w.launches = n
+        minplus.launches = n
 
 
 class CpuDevice:
@@ -66,7 +73,7 @@ class CpuDevice:
         self.eagers += 1
         return fn()
 
-    def capture(self, fn):
+    def capture(self, fn, fresh):
         self.captures += 1
         out = fn()
         return _Replay(fn, out), out
@@ -74,11 +81,15 @@ class CpuDevice:
 
 @pytest.fixture
 def cpu_graphs(monkeypatch):
-    """graphs on the CPU stand-in, with an empty cache; the min-plus
-    wrapper counts its CPU calls as its kernel launches would."""
+    """graphs on the CPU stand-in, rounds replayed on the CPU, with an
+    empty cache; the min-plus wrapper counts its CPU calls as its kernel
+    launches would."""
     monkeypatch.setattr(graphs, "_Device", CpuDevice)
+    monkeypatch.setattr(graphs, "replayed", lambda device: True)
     monkeypatch.setattr(graphs, "_devices", {})
     monkeypatch.setattr(graphs, "_graphs", type(graphs._graphs)())
+    monkeypatch.setattr(graphs, "_seen", type(graphs._seen)())
+    monkeypatch.setattr(graphs, "rounds", dict.fromkeys(graphs.rounds, 0))
     orig = edt_minplus.minplus_rows
     orig.launches = 0
 
@@ -121,9 +132,10 @@ VARIANTS = {"clicks": {}, "mode1_points": dict(prompt_mode=1,
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("b", [1, 3])
 def test_replayed_rounds_equal_eager(setup, cpu_graphs, variant, b):
-    """Two runs of rounds of a batch (the first captures after an eager
-    round, the second only replays) equal the eager scan continued, every
-    field; the launch counters count each round's launches once."""
+    """Two runs of rounds of a batch (the first runs its first round
+    eagerly, then captures and replays; the second only replays) equal the
+    eager scan continued, every field; the wrappers count the eager round's
+    and the capture's calls, none per replay."""
     model, cfg, samples = setup
     cfg = dataclasses.replace(cfg, **VARIANTS[variant])
     start = tpred.stack_states(_states(cfg, samples[:b]))
@@ -140,8 +152,10 @@ def test_replayed_rounds_equal_eager(setup, cpu_graphs, variant, b):
     got2, ious2 = graphs.click_rounds(model, cfg, got1, 2, gen_r)
     dev = graphs._devices[torch.device("cpu")]
     assert (dev.eagers, dev.captures, len(graphs._graphs)) == (1, 1, 1)
+    assert graphs.rounds == {"eager": 1, "captured": 1,
+                             "replayed": CLICKS + 1}
     n_mp = {0: 1, 1: 1, 2: 2}[cfg.prompt_mode]     # + the extra error click
-    assert minplus.launches == n_mp * (CLICKS + 2)
+    assert minplus.launches == n_mp * 2
     _assert_equal(got1, want1)
     _assert_equal(got2, want2)
     assert torch.equal(ious1, wious1) and torch.equal(ious2, wious2)
@@ -178,31 +192,65 @@ def test_user_click_rounds_equal_eager(setup, cpu_graphs):
     assert (dev.eagers, dev.captures) == (1, 1)
 
 
+def test_one_click_sessions_capture_on_the_second_meeting(setup,
+                                                         cpu_graphs):
+    """A key's first round runs eagerly and captures nothing; the key's
+    next round, in a later run, is captured; later ones replay."""
+    model, cfg, samples = setup
+    dev_rounds = []
+    for st in _states(cfg, samples):
+        with torch.no_grad():
+            want, wiou = tpred.click_step(model, cfg, st)
+        got, iou = graphs.click_rounds(model, cfg, tpred._as_batch(st), 1)
+        _assert_equal(tpred.session(got, 0), want)
+        assert torch.equal(iou[0, 0], wiou)
+        dev_rounds.append(dict(graphs.rounds))
+    assert dev_rounds == [{"eager": 1, "captured": 0, "replayed": 0},
+                          {"eager": 1, "captured": 1, "replayed": 1},
+                          {"eager": 1, "captured": 1, "replayed": 2}]
+
+
 def test_cache_key_and_bound(setup, cpu_graphs, monkeypatch):
-    """One capture per (model, weights' storage, config, canvas, batch,
-    kind); at most MAX_GRAPHS kept, the least recently used dropped."""
+    """One capture per (model, where its tensors lie, config, canvas,
+    batch, kind); at most MAX_GRAPHS kept, the least recently used
+    dropped."""
     model, cfg, samples = setup
     monkeypatch.setattr(graphs, "MAX_GRAPHS", 2)
     one = tpred._as_batch(_states(cfg, samples[:1])[0])
     two = tpred.stack_states(_states(cfg, samples[:2]))
     dev_cfg = dataclasses.replace(cfg, prob_thresh=0.4)
-    graphs.click_rounds(model, cfg, one, 1)
+    graphs.click_rounds(model, cfg, one, 2)           # eager, capture
     graphs.click_rounds(model, cfg, one, 1)           # a hit
     dev = graphs._devices[torch.device("cpu")]
-    assert dev.captures == 1
-    graphs.click_rounds(model, cfg, two, 1)           # another batch size
+    assert (dev.eagers, dev.captures) == (1, 1)
+    graphs.click_rounds(model, cfg, two, 2)           # another batch size
     graphs.click_rounds(model, cfg, one, 1)           # a hit, now the newest
-    graphs.click_rounds(model, dev_cfg, one, 1)       # another config
+    graphs.click_rounds(model, dev_cfg, one, 2)       # another config
     assert dev.captures == 3 and len(graphs._graphs) == 2
     graphs.click_rounds(model, cfg, one, 1)           # kept
-    graphs.click_rounds(model, cfg, two, 1)           # dropped: again
-    assert dev.captures == 4
+    graphs.click_rounds(model, cfg, two, 1)           # dropped, met: again
+    assert (dev.eagers, dev.captures) == (3, 4)
     other = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
-    graphs.click_rounds(other, cfg, two, 1)           # another model
-    assert dev.captures == 5
+    graphs.click_rounds(other, cfg, two, 2)           # another model
+    assert (dev.eagers, dev.captures) == (4, 5)
     graphs.clear()
-    assert len(graphs._graphs) == 0
+    assert len(graphs._graphs) == len(graphs._seen) == 0
 
+
+def test_key_follows_every_tensor_of_the_model(setup, cpu_graphs):
+    """A parameter or buffer given new storage (an in-place cast or move)
+    makes a new key: a graph reads the storage it was captured with."""
+    model, cfg, samples = setup
+    model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+    one = tpred._as_batch(_states(cfg, samples[:1])[0])
+    graphs.click_rounds(model, cfg, one, 2)
+    last = list(model.parameters())[-1]
+    before = graphs._key(model, cfg, "click", one)
+    last.data = last.data.clone()
+    assert graphs._key(model, cfg, "click", one) != before
+    graphs.click_rounds(model, cfg, one, 2)
+    dev = graphs._devices[torch.device("cpu")]
+    assert (dev.eagers, dev.captures) == (2, 2)
 
 
 def test_drivers_replay_as_they_run_eagerly(setup, cpu_graphs, monkeypatch):
@@ -218,16 +266,18 @@ def test_drivers_replay_as_they_run_eagerly(setup, cpu_graphs, monkeypatch):
         pred.set_input(samples[0].image, samples[0].gt_mask(0))
         ious = pred.run_clicks(2).tolist() + [
             pred.next_click(), pred.user_click(20.0, 30.0, False),
-            pred.next_click()]
+            pred.user_click(40.0, 10.0, True), pred.next_click()]
         pred.undo_click()
         curves, _, _ = batched.BatchedEvaluator(model, box, 2, device="cpu"
                                                 ).evaluate(ds, max_clicks=3)
         return ious, pred.state, curves
+    monkeypatch.setattr(graphs, "replayed", lambda device: False)
     want = run()
+    assert graphs._devices == {}
     monkeypatch.setattr(graphs, "replayed", lambda device: True)
     got = run()
     dev = graphs._devices[torch.device("cpu")]
-    assert dev.captures == 3          # clicks, the user click, box at B = 2
+    assert dev.captures == 3          # clicks, user clicks, box at B = 2
     assert got[0] == want[0]
     _assert_equal(got[1], want[1])
     assert len(got[2]) == len(want[2]) == 3
