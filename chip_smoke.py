@@ -9,7 +9,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
   2. build: nvcc compiles pvpuformer_tpu_torch/csrc/*.cu into build/kernels/;
   3. kernels vs their plain PyTorch versions on the card, at the ViT-B@448
      click-, prompt- and training-path (batch 32) shapes, the batched
-     sessions' shapes at B = 8 (B = 16's are the training shapes), and the
+     sessions' shapes at B = 8 (B = 16's are the training shapes),
+     PlainVit's tiled_forward over 12 tiles (attention (48, 196, 12, 64)
+     and (12, 784, 12, 64), LN+MLP over 9408 rows), and the
      ViT-L / ViT-H click shapes (head dims 64 and 80, LN+MLP at 1024 ->
      4096 and 1280 -> 5120) (and the CC
      kernels, bit-exact and bit-identical on repeat at iters 1, 2, 8 and 16,
@@ -142,9 +144,30 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      each at max_iters 20 (ms and functor evaluations per click; launches
      per click: one min-plus, 12 attention and LN+MLP forwards per full
      forward, 12 attention and LN+MLP backwards per RGB-BRS evaluation);
+ 16. the model families (models/registry.py): (a) each family's tiny f32
+     5-click session (PlainVit and tests/test_zoo.py's tiny zoo configs) on
+     the card against the CPU, identical clicks and IoU within 1e-5, and
+     the tiny PlainVit's tiled_forward card against CPU (1e-4 of the
+     largest logit); (b) PlainVit (SimpleClick) ViT-B@448 bf16, seeded
+     random weights: two 20-click sessions through `Predictor` with the
+     launch checks (12 attention, 12 LN+MLP, 1 min-plus a round), the
+     replayed rounds against the eager `click_scan` (bit-identical, p50 ms
+     per click of both, device time), 2 RGB-BRS clicks at max_iters 20
+     (the attention backward and LN+MLP backward launches per
+     evaluation), a 5-click box session (one launch of each CC kernel and
+     two min-plus a round) and `tiled_forward` over 896 x 1344 (3 x 4
+     tiles) against the same call with the attention and LN+MLP kernels'
+     plain twins on the card (TILED_BF16_TOL of the largest logit) and
+     against the same tiles' forward blended on the CPU; (c) each
+     zoo family at its default config (HRNet-18s + OCR-64, DeepLab R50 ch
+     256, MiT-b0, Swin-T, HRFormer-base, Swin-UNet), bf16, seeded random
+     weights: two 5-click sessions with the launch checks (one min-plus a
+     round), replayed rounds against the eager `click_scan`
+     (bit-identical, p50 ms per click), and one f-BRS-A click of HRNet and
+     DeepLab; one {"phase16": ...} JSON line with the p50s;
 then one JSON line of kernel summaries (launches: the wrapper counts
-summed over the paths of phases 5, 7, 9 and 15), the card's name and power
-limit, and, last, {"ok": true, "device": ...}.
+summed over the paths of phases 5, 7, 9, 15 and 16), the card's name and
+power limit, and, last, {"ok": true, "device": ...}.
 
 LAUNCH CHECKS. A kernel wrapper counts its calls where it launches: in an
 eager round and in the capture of a round, which records the launch into
@@ -164,14 +187,16 @@ click path and of the four prompt variants, and batched click rounds at B
 = 8 and 16, each eager and replayed from its captured round, with
 torch.profiler (CPU + CUDA activities): device time per round by kernel
 group, launches per round, the device busy share under the profiler, and
-the host-clock median of unprofiled rounds beside it.
+the host-clock median of unprofiled rounds beside it; then the replayed
+click round of PlainVit ViT-B@448 and of each zoo family at its default
+config the same way (`profile_families`).
 
 No phase's depth was cut for time: the whole script, the build included,
-takes about 540 s on an NVIDIA H100 80GB HBM3 at 700 W (phase 5's two
-bench processes about 65 s of it; the launch checks' second runs under
-the profiler, each window opened by 0.25 s of guard kernels, and the
-graph-cache workload add the most beyond the phases themselves), of its
-1200 s limit.
+takes about 570 s on an NVIDIA H100 80GB HBM3 at 700 W (phase 5's two
+bench processes about 65 s of it, phase 16 about 70 s; the launch
+checks' second runs under the profiler, each window opened by 0.25 s of
+guard kernels, and the graph-cache workload add the most beyond the
+phases themselves), of its 1200 s limit.
 """
 from __future__ import annotations
 
@@ -362,6 +387,10 @@ def phase_kernels(dev):
             # dims 64 and 80)
             ("B=8 window", (64, 196, 12, 64), (torch.bfloat16,), both[:1]),
             ("B=8 global", (16, 784, 12, 64), (torch.bfloat16,), both[:1]),
+            # PlainVit's tiled_forward over 896 x 1344: 12 tiles in one
+            # batch (phase 16b)
+            ("tiled window", (48, 196, 12, 64), (torch.bfloat16,), both[:1]),
+            ("tiled global", (12, 784, 12, 64), (torch.bfloat16,), both[:1]),
             ("ViT-L window", (8, 196, 16, 64), (torch.bfloat16,), both[:1]),
             ("ViT-L global", (2, 784, 16, 64), (torch.bfloat16,), both[:1]),
             ("ViT-H window", (8, 256, 16, 80), (torch.bfloat16,), both[:1]),
@@ -477,9 +506,10 @@ def phase_kernels(dev):
     # path has them) against autograd through the plain version, which is
     # also its time's yardstick
     mlp_extra = {}
-    # (D, hidden, rows): ViT-B's click, batched B = 8 and training rows,
-    # ViT-L's and ViT-H's click rows (2 x 784, 2 x 1024 tokens)
-    for d, hid, rows in ((768, 3072, (1568, 16 * 784, 32 * 784)),
+    # (D, hidden, rows): ViT-B's click, batched B = 8, PlainVit's 12 tiles
+    # (phase 16b) and training rows, ViT-L's and ViT-H's click rows (2 x
+    # 784, 2 x 1024 tokens)
+    for d, hid, rows in ((768, 3072, (1568, 16 * 784, 12 * 784, 32 * 784)),
                          (1024, 4096, (1568,)), (1280, 5120, (2048,))):
         ln, mlp = nn.Norm(d), nn.Mlp(d, hid)
         with torch.no_grad():
@@ -2290,6 +2320,35 @@ def profile_paths(dev, card: str):
     return out
 
 
+
+def profile_families(dev, card: str):
+    """`--profile`, second part: where a replayed click round's device time
+    goes for PlainVit ViT-B@448 and each zoo family at its default config
+    (bf16, seeded random weights; the sessions of phase 16)."""
+    import torch
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.models import registry
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    out = {}
+    for cfg in [plainvit_b448(torch.bfloat16)] + zoo_defaults(torch.bfloat16):
+        name = type(cfg).__name__
+        graphs.clear()
+        torch.cuda.empty_cache()
+        model = registry.build(cfg, torch.Generator().manual_seed(0), dev)
+        pred = Predictor(model, PredictorConfig(
+            model=cfg, target_size=(448, 448), with_flip=True), device=dev)
+        pred.set_input(image, gt)
+        out[name + " replayed"] = _profile_rounds(pred.next_click, card,
+                                                  name + " replayed")
+        del pred, model
+    graphs.clear()
+    return out
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TINY_RECIPE = "pvpuformer_tpu_torch/recipes/iSegNet/vpu_tiny_synthetic.py"
 RECIPE_STEPS = 4          # phase 13b: one epoch of the shipped recipe
@@ -2985,6 +3044,467 @@ def phase_serving(dev, card: str):
     return total
 
 
+FAMILY_CLICKS = 5         # phase 16: clicks of each family's session
+PLAINVIT_BRS_CLICKS = 2   # phase 16b: RGB-BRS oracle clicks at max_iters 20
+TILE_CANVAS = (896, 1344)  # phase 16b: tiled_forward's canvas (3 x 4 tiles)
+# phase 16b: tiled_forward's kernels vs their plain twins on the card, bf16,
+# of max(1, the largest |logit|): ~2.5x the 1.17e-2 measured on an H100
+# (3 ulps at the logits' scale; PERF.md, Findings)
+TILED_BF16_TOL = 3e-2
+
+
+def tiny_families():
+    """Phase 16a's configs: a tiny PlainVit (depth 4, 64 x 64, windowed
+    blocks) and the zoo's tiny configs of tests/test_zoo.py, with
+    Swin-UNet's of its test_swin_unet_forward."""
+    from pvpuformer_tpu_torch.models.fpn import NeckConfig
+    from pvpuformer_tpu_torch.models.plainvit import PlainVitConfig
+    from pvpuformer_tpu_torch.models.seg_head import HeadConfig
+    from pvpuformer_tpu_torch.models.vit import ViTConfig
+    from pvpuformer_tpu_torch.models.zoo.deeplab import DeeplabISConfig
+    from pvpuformer_tpu_torch.models.zoo.hrformer import HRFormerISConfig
+    from pvpuformer_tpu_torch.models.zoo.hrnet import HRNetISConfig
+    from pvpuformer_tpu_torch.models.zoo.segformer import SegformerISConfig
+    from pvpuformer_tpu_torch.models.zoo.swin import SwinISConfig
+    from pvpuformer_tpu_torch.models.zoo.swin_unet import SwinUNetISConfig
+    n = dict(num_max_points=6)
+    return [
+        PlainVitConfig(
+            backbone=ViTConfig(img_size=(64, 64), patch_size=(16, 16),
+                               embed_dim=64, depth=4, num_heads=2,
+                               window_pixels=32),
+            neck=NeckConfig(in_dim=64, out_dims=(16, 32, 48, 64),
+                            img_size=(64, 64), hide_dim=64),
+            head=HeadConfig(in_channels=(16, 32, 48, 64), channels=32,
+                            d_model=64, ed_loss=False), **n),
+        SegformerISConfig(embed_dims=(16, 32, 48, 64), depths=(1, 1, 1, 1),
+                          num_heads=(1, 2, 3, 4), head_channels=32, **n),
+        HRNetISConfig(width=8, small=True, ocr_width=16, **n),
+        DeeplabISConfig(ch=32, **n),
+        SwinISConfig(embed_dim=16, depths=(1, 1, 1, 1),
+                     num_heads=(1, 2, 4, 8), head_channels=16, window=4, **n),
+        HRFormerISConfig(width=8, num_heads=(1, 2, 4, 8), num_units=(1, 1, 1),
+                         window=4, ocr_width=16, **n),
+        SwinUNetISConfig(embed_dim=16, depths=(1, 1, 1, 1),
+                         num_heads=(1, 2, 4, 8), window=4, **n)]
+
+
+def plainvit_b448(dtype):
+    """Phase 16b: PlainVit's default config, SimpleClick ViT-B@448."""
+    from pvpuformer_tpu_torch.models.plainvit import PlainVitConfig
+    return PlainVitConfig(dtype=dtype)
+
+
+def zoo_defaults(dtype):
+    """Phase 16c: each zoo family at its default config: HRNet-18s +
+    OCR-64, DeepLab R50 ch 256, MiT (32, 64, 160, 256), Swin-T,
+    HRFormer-base, Swin-UNet."""
+    from pvpuformer_tpu_torch.models.zoo.deeplab import DeeplabISConfig
+    from pvpuformer_tpu_torch.models.zoo.hrformer import HRFormerISConfig
+    from pvpuformer_tpu_torch.models.zoo.hrnet import HRNetISConfig
+    from pvpuformer_tpu_torch.models.zoo.segformer import SegformerISConfig
+    from pvpuformer_tpu_torch.models.zoo.swin import SwinISConfig
+    from pvpuformer_tpu_torch.models.zoo.swin_unet import SwinUNetISConfig
+    return [c(dtype=dtype) for c in (HRNetISConfig, DeeplabISConfig,
+                                     SegformerISConfig, SwinISConfig,
+                                     HRFormerISConfig, SwinUNetISConfig)]
+
+
+def _canvas_clicks(hw):
+    """Full-frame clicks over a tiled canvas: two positives, one negative,
+    one at the far corner."""
+    import torch
+    pts = torch.full((1, 12, 3), -1.0)
+    pts[0, 0] = torch.tensor([200.0, 300.0, 0.0])
+    pts[0, 1] = torch.tensor([hw[0] * 0.6, hw[1] * 0.55, 2.0])
+    pts[0, 6] = torch.tensor([hw[0] * 0.3, hw[1] * 0.8, 1.0])
+    pts[0, 7] = torch.tensor([hw[0] - 1.0, hw[1] - 1.0, 3.0])
+    return pts
+
+
+def phase_family_parity(dev):
+    """Phase 16a: each family's tiny f32 session on the card (kernels;
+    rounds replayed from the second) against the same session on the CPU
+    (plain versions): identical clicks, IoU within 1e-5; tiled_forward of
+    the tiny PlainVit over a 96 x 150 canvas, card against CPU, within
+    1e-4 of the largest logit."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig)
+    from pvpuformer_tpu_torch.inference.tiled import tiled_forward
+    from pvpuformer_tpu_torch.models import registry
+    r = np.random.default_rng(7)
+    image = (r.uniform(size=(60, 90, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((60, 90), np.float32)
+    gt[14:50, 18:46] = 1.0
+    for cfg in tiny_families():
+        pcfg = PredictorConfig(model=cfg, target_size=(64, 64),
+                               min_crop_size=32)
+        out = {}
+        for where in ("cpu", dev):
+            model = registry.build(cfg, torch.Generator().manual_seed(1),
+                                   "cpu")
+            pred = Predictor(model, pcfg, device=where)
+            pred.set_input(image, gt)
+            out[str(where)] = (pred.run_clicks(FAMILY_CLICKS), pred.clicks)
+        (iou_c, clk_c), (iou_g, clk_g) = out["cpu"], out[str(dev)]
+        err = float(np.abs(iou_c - iou_g).max())
+        same = np.array_equal(clk_c, clk_g)
+        ok = same and err <= 1e-5
+        _log(f"  {type(cfg).__name__} tiny f32 {FAMILY_CLICKS}-click session"
+             f" cuda vs cpu: clicks {'identical' if same else 'DIFFER'}, "
+             f"max |dIoU|={err:.2e} (tol 1e-5) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{type(cfg).__name__}: cpu {iou_c} "
+                                 f"{clk_c}\ncuda {iou_g} {clk_g}")
+    cfg = tiny_families()[0]
+    img = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(1, 96, 150, 4)).astype(np.float32))
+    pts = _canvas_clicks((96, 150)) * torch.tensor([0.2, 0.2, 1.0])
+    got = {}
+    for where in ("cpu", dev):
+        model = registry.build(cfg, torch.Generator().manual_seed(1),
+                               "cpu").to(where)
+        got[str(where)] = tiled_forward(model, cfg, img.to(where),
+                                        pts.to(where), (64, 64)).cpu()
+    want = got["cpu"]
+    err = float((got[str(dev)] - want).abs().max()
+                / max(1.0, float(want.abs().max())))
+    _log(f"  tiny PlainVit tiled_forward over 96 x 150 (2 x 3 tiles) cuda vs"
+         f" cpu: {err:.2e} of the largest logit (tol 1e-4) "
+         f"{'ok' if err <= 1e-4 else 'FAIL'}")
+    if err > 1e-4:
+        raise AssertionError(f"tiled_forward: cuda vs cpu {err}")
+
+
+def _family_sessions(pred, image, gt, clicks: int):
+    """Session 1 (its first round eager, its second captured, the rest
+    replayed), then session 2 timed per click (replayed rounds)."""
+    def check(ious):
+        ious = np.asarray(ious)
+        if not (np.isfinite(ious).all() and ious.shape == (clicks,)
+                and (ious >= 0).all() and (ious <= 1).all()):
+            raise AssertionError(f"bad IoU curve {ious}")
+        if int(pred.state.click_count) != clicks:
+            raise AssertionError(f"click_count {int(pred.state.click_count)}")
+
+    def sessions():
+        pred.set_input(image, gt)
+        check(pred.run_clicks(clicks))
+        pred.set_input(image, gt)
+        per_click, ious = [], []
+        for _ in range(clicks):
+            t = time.perf_counter()
+            ious.append(pred.next_click())
+            per_click.append((time.perf_counter() - t) * 1e3)
+        check(ious)
+        return per_click
+
+    def session():
+        pred.set_input(image, gt)
+        pred.run_clicks(clicks)
+    return sessions, session
+
+
+def _tiled_vs_plain(model, mcfg, img, pts, got, card: str):
+    """Phase 16b: `tiled_forward` again with the attention and LN+MLP
+    kernels' plain twins (the functions the CPU runs) in place of their
+    wrappers, on the same device: the kernels at the 12 tiles' batch shapes
+    held against their plain versions end to end. `got` is the kernels'
+    result; returns the largest difference, absolute and relative to the
+    largest logit."""
+    import torch
+    from pvpuformer_tpu_torch.inference.tiled import tiled_forward
+    from pvpuformer_tpu_torch.models import vit
+    from pvpuformer_tpu_torch.ops.fused_attention import \
+        fused_attention_plain
+    from pvpuformer_tpu_torch.ops.fused_mlp import fused_ln_mlp_plain
+
+    def plain_attention(q, k, v, scale=None):
+        s = 1.0 / float(np.sqrt(q.shape[-1])) if scale is None else scale
+        return fused_attention_plain(q, k, v, s)
+
+    def plain_ln_mlp(x, ln, mlp, eps=1e-6):
+        d = x.shape[-1]
+        return fused_ln_mlp_plain(
+            x.reshape(-1, d), ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b,
+            mlp.fc2.w, mlp.fc2.b, eps).reshape(x.shape)
+
+    _zero_counts()
+    with _patched(vit, "fused_attention", lambda _: plain_attention), \
+            _patched(vit, "fused_ln_mlp", lambda _: plain_ln_mlp):
+        plain = tiled_forward(model, mcfg, img, pts, mcfg.backbone.img_size)
+    torch.cuda.synchronize()
+    _round_counts([_counts()], {}, "tiled forward, plain twins")
+    scale = max(1.0, float(plain.abs().max()))
+    err = float((got - plain).abs().max())
+    ok = bool(torch.isfinite(plain).all()) and err <= TILED_BF16_TOL * scale
+    _log(f"  PlainVit tiled_forward, kernels vs plain twins on the card "
+         f"(bf16): max |d| {err:.4e} = {err / scale:.4e} of max(1, the "
+         f"largest |logit|) {scale:.4f}, limit {TILED_BF16_TOL} "
+         f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"tiled_forward vs plain twins: {err}")
+    return err, err / scale
+
+
+def phase_plainvit(dev, card: str):
+    """Phase 16b: PlainVit (SimpleClick) ViT-B@448 bf16, seeded random
+    weights, on the hand-written kernels."""
+    import torch
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference.brs import get_predictor
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         init_session)
+    from pvpuformer_tpu_torch.inference.tiled import (_blend_window,
+                                                     _tile_origins,
+                                                     tiled_forward)
+    from pvpuformer_tpu_torch.models.plainvit import (init_plainvit,
+                                                     plainvit_forward)
+    mcfg = plainvit_b448(torch.bfloat16)
+    if mcfg.backbone.img_size != (448, 448):
+        raise AssertionError(f"PlainVit crop {mcfg.backbone.img_size}")
+    model = init_plainvit(mcfg, torch.Generator().manual_seed(0), dev)
+    pcfg = PredictorConfig(model=mcfg, target_size=(448, 448), with_flip=True)
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    depth = mcfg.backbone.depth
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    graphs.clear()
+    pred = Predictor(model, pcfg, device=dev)
+    sessions, session = _family_sessions(pred, image, gt, CLICKS)
+    per_round = {"fused_attention": depth, "minplus_rows": 1,
+                 "fused_ln_mlp": depth}
+    per_click, calls, device = _launch_checks(
+        sessions, per_round, 2 * CLICKS, "PlainVit click sessions",
+        traced=[(session, CLICKS)] * 2)
+    add(calls)
+    state0 = init_session(image, gt, mcfg.num_max_points, (448, 448), dev)
+    rv = _replay_vs_eager(pred, state0, CLICKS, "PlainVit click path", card)
+    _log(f"  PlainVit ViT-B@448 bf16: session 2 median "
+         f"{np.median(per_click):.3f} ms/click; device launches over "
+         f"{2 * CLICKS} rounds {device} ({card})")
+
+    # --- RGB-BRS: a full forward and backward per evaluation ---
+    bp = get_predictor(model, pcfg, "RGB-BRS", device=dev)
+    bp.set_input(image, gt)
+    bp.next_click()                                          # warm-up
+    bp.set_input(image, gt)
+    brs_ms, brs_evals = [], []
+    for _ in range(PLAINVIT_BRS_CLICKS):
+        _zero_counts()
+        e0 = bp.evaluations
+        t = time.perf_counter()
+        iou = bp.next_click()
+        brs_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        ev = bp.evaluations - e0
+        counts = _counts()
+        add(counts)
+        brs_evals.append(ev)
+        _round_counts([counts], {
+            "fused_attention": depth * (ev + 1),
+            "fused_ln_mlp": depth * (ev + 1), "minplus_rows": 1,
+            "fused_attention_bwd": depth * ev,
+            "fused_ln_mlp_bwd": depth * ev}, "PlainVit RGB-BRS click")
+        if not 0.0 <= iou <= 1.0:
+            raise AssertionError(f"PlainVit RGB-BRS IoU {iou}")
+    _log(f"  PlainVit RGB-BRS {PLAINVIT_BRS_CLICKS} oracle clicks at "
+         f"max_iters 20: ms per click {np.round(brs_ms, 1).tolist()}, "
+         f"evaluations {brs_evals}; launches per click as predicted "
+         f"(attention and LN+MLP forwards {depth} per full forward, their "
+         f"backwards {depth} per evaluation, one min-plus) ({card})")
+    del bp
+
+    # --- a box session: the CC kernels through synth_boxes ---
+    bpred = Predictor(model, dataclasses.replace(pcfg, prompt_mode=1),
+                      device=dev)
+
+    def box_session():
+        bpred.set_input(image, gt)
+        ious = bpred.run_clicks(PROMPT_CLICKS)
+        if not (np.isfinite(ious).all() and (ious >= 0).all()
+                and (ious <= 1).all()):
+            raise AssertionError(f"PlainVit box session IoUs {ious}")
+        return ious
+    _, calls, _ = _launch_checks(
+        box_session, {"fused_attention": depth, "fused_ln_mlp": depth,
+                      "minplus_rows": 2, "cc_labels": 1, "component_max": 1},
+        PROMPT_CLICKS, "PlainVit box session (multi-prompt)")
+    add(calls)
+    del bpred
+
+    # --- tiled_forward over a canvas larger than the crop ---
+    h, w = TILE_CANVAS
+    img = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(1, h, w, 4)).astype(np.float32)).to(dev)
+    pts = _canvas_clicks(TILE_CANVAS).to(dev)
+    _zero_counts()
+    got = tiled_forward(model, mcfg, img, pts, (448, 448))
+    torch.cuda.synchronize()
+    counts = _counts()
+    tiled_ms = []                      # the first call above is the warm-up
+    for _ in range(3):
+        t = time.perf_counter()
+        tiled_forward(model, mcfg, img, pts, (448, 448))
+        torch.cuda.synchronize()
+        tiled_ms.append((time.perf_counter() - t) * 1e3)
+    tiled_ms = float(np.median(tiled_ms))
+    ys, xs = _tile_origins(h, 448, 0.2), _tile_origins(w, 448, 0.2)
+    tiles = [(y0, x0) for y0 in ys for x0 in xs]
+    add(counts)
+    _round_counts([counts], {"fused_attention": depth,
+                             "fused_ln_mlp": depth}, "tiled forward")
+    plain_err, plain_rel = _tiled_vs_plain(model, mcfg, img, pts, got, card)
+    # the tiles' own forward on the card, blended on the CPU in f64
+    with torch.no_grad():
+        batch = torch.stack([img[0, y0:y0 + 448, x0:x0 + 448]
+                             for y0, x0 in tiles])
+        tpts = []
+        for y0, x0 in tiles:
+            py, px = pts[0, :, 0] - y0, pts[0, :, 1] - x0
+            inside = ((pts[0, :, 2] >= 0) & (py >= 0) & (py < 448)
+                      & (px >= 0) & (px < 448))
+            tpts.append(torch.where(inside[:, None], torch.stack(
+                [py, px, pts[0, :, 2]], -1), -1.0))
+        logits = plainvit_forward(model, mcfg, batch, torch.stack(tpts))[
+            "instances"].float().cpu().numpy()
+    win = _blend_window(448, 448)[..., None].astype(np.float64)
+    acc = np.zeros((h, w, 1))
+    den = np.full((h, w, 1), 1e-6)
+    for i, (y0, x0) in enumerate(tiles):
+        acc[y0:y0 + 448, x0:x0 + 448] += logits[i] * win
+        den[y0:y0 + 448, x0:x0 + 448] += win
+    want = acc / den
+    err = float(np.abs(got[0].cpu().numpy() - want).max())
+    ok = err <= 1e-4 * max(1.0, float(np.abs(want).max())) \
+        and np.isfinite(want).all()
+    _log(f"  PlainVit tiled_forward over {h} x {w} ({len(ys)} x {len(xs)} "
+         f"tiles, one batched forward): {tiled_ms:.1f} ms (median of 3 "
+         f"after a warm-up call); against the "
+         f"tiles' forward blended on the CPU (f64): max |d| {err:.2e} "
+         f"{'ok' if ok else 'FAIL'}; one attention and LN+MLP launch per "
+         f"block ({card})")
+    if not ok:
+        raise AssertionError(f"tiled_forward: {err}")
+    del model
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return total, {"eager_p50_ms": rv["eager_p50_ms"],
+                   "replay_p50_ms": rv["replay_p50_ms"],
+                   "session_p50_ms": float(np.median(per_click)),
+                   "replay_device_ms": rv["replay_device_ms"],
+                   "rgb_brs_ms": brs_ms, "rgb_brs_evaluations": brs_evals,
+                   "tiled_ms": tiled_ms, "tiled_plain_err": plain_err,
+                   "tiled_plain_rel_err": plain_rel,
+                   "device_launches": device}
+
+
+def phase_zoo(dev, card: str):
+    """Phase 16c: each zoo family at its default config, bf16, seeded random
+    weights: a FAMILY_CLICKS-click session through `Predictor` twice (the
+    launch checks: one min-plus a round, no attention or LN+MLP kernel),
+    replayed rounds against the eager `click_scan` (bit-identical) with p50
+    ms per click; one f-BRS-A click of HRNet and DeepLab."""
+    import torch
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference.brs import get_predictor
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         init_session)
+    from pvpuformer_tpu_torch.models import registry
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    total, out = {}, {}
+    for cfg in zoo_defaults(torch.bfloat16):
+        name = type(cfg).__name__
+        graphs.clear()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        model = registry.build(cfg, torch.Generator().manual_seed(0), dev)
+        build_s = time.perf_counter() - t
+        pcfg = PredictorConfig(model=cfg, target_size=(448, 448),
+                               with_flip=True)
+        pred = Predictor(model, pcfg, device=dev)
+        sessions, session = _family_sessions(pred, image, gt, FAMILY_CLICKS)
+        per_click, calls, device = _launch_checks(
+            sessions, {"minplus_rows": 1}, 2 * FAMILY_CLICKS,
+            f"{name} sessions", traced=[(session, FAMILY_CLICKS)] * 2)
+        for k, v in calls.items():
+            total[k] = total.get(k, 0) + v
+        state0 = init_session(image, gt, cfg.num_max_points, (448, 448), dev)
+        rv = _replay_vs_eager(pred, state0, FAMILY_CLICKS, f"{name} click "
+                              f"path", card)
+        n_params = sum(p.numel() for p in model.parameters())
+        rec = {"session_p50_ms": float(np.median(per_click)),
+               "replay_p50_ms": rv["replay_p50_ms"],
+               "eager_p50_ms": rv["eager_p50_ms"],
+               "replay_device_ms": rv["replay_device_ms"],
+               "params_m": n_params / 1e6, "build_s": build_s}
+        if name in ("HRNetISConfig", "DeeplabISConfig"):
+            bp = get_predictor(model, pcfg, "f-BRS-A", device=dev)
+            bp.set_input(image, gt)
+            bp.next_click()                                  # warm-up
+            bp.set_input(image, gt)
+            _zero_counts()
+            e0 = bp.evaluations
+            t = time.perf_counter()
+            iou = bp.next_click()
+            ms = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            counts = _counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            _round_counts([counts], {"minplus_rows": 1},
+                          f"{name} f-BRS-A click")
+            if not 0.0 <= iou <= 1.0:
+                raise AssertionError(f"{name} f-BRS-A IoU {iou}")
+            rec.update(fbrs_a_ms=ms, fbrs_a_insertion=bp.insertion,
+                       fbrs_a_evaluations=bp.evaluations - e0)
+            del bp
+        out[name] = rec
+        _log(f"  {name} (default config, {n_params / 1e6:.1f} M parameters,"
+             f" bf16): session 2 median {rec['session_p50_ms']:.3f} ms/click"
+             f", replayed p50 {rec['replay_p50_ms']:.3f}, eager p50 "
+             f"{rec['eager_p50_ms']:.3f}, replayed device "
+             f"{rec['replay_device_ms']:.3f} ms/click"
+             + (f"; f-BRS-A ({rec['fbrs_a_insertion']}) click "
+                f"{rec['fbrs_a_ms']:.1f} ms, {rec['fbrs_a_evaluations']} "
+                f"evaluations" if "fbrs_a_ms" in rec else "")
+             + f" ({card})")
+        del pred, model
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def phase_families(dev, card: str):
+    """Phase 16: the model registry's families (a, b, c above); prints one
+    {"phase16": ...} JSON line and returns the wrapper calls of 16b-16c."""
+    _log("  (a) parity, tiny f32 sessions cuda vs cpu, every family")
+    phase_family_parity(dev)
+    _log("  (b) PlainVit ViT-B@448 bf16")
+    total, plainvit = phase_plainvit(dev, card)
+    _log("  (c) the zoo families at their default configs, bf16")
+    zoo_total, zoo = phase_zoo(dev, card)
+    for k, v in zoo_total.items():
+        total[k] = total.get(k, 0) + v
+    print(json.dumps({"phase16": {"card": card, "plainvit": plainvit,
+                                  "zoo": zoo, "launches": total}}),
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2996,7 +3516,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/15] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/16] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -3008,61 +3528,73 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/15] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/16] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
-        _log("[profile] ViT-B@448 bf16 clicks under torch.profiler")
+        _log("[profile] ViT-B@448 bf16 clicks under torch.profiler, then "
+             "PlainVit and the zoo families")
         print(json.dumps({"profile": profile_paths(dev, smi), "card": smi}))
+        graphs.clear()
+        torch.cuda.empty_cache()
+        print(json.dumps({"profile_families": profile_families(dev, smi),
+                          "card": smi}))
         return 0
 
-    _log("[3/15] kernels vs plain versions")
+    _log("[3/16] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/15] model parity, tiny config f32")
+    _log("[4/16] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/15] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/16] main path: ViT-B@448 bf16 click sessions")
     launches, model = phase_main(dev, smi)
-    _log("[6/15] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/16] prompt parity, tiny config f32, four prompt variants")
     phase_prompt_parity(dev)
-    _log("[7/15] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/16] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = phase_prompts(dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     graphs.clear()                  # the captured rounds' memory
     torch.cuda.empty_cache()
-    _log("[8/15] training parity, tiny config f32")
+    _log("[8/16] training parity, tiny config f32")
     phase_train_parity(dev)
-    _log("[9/15] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/16] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = phase_train(dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/15] evaluation parity, tiny config f32: sequential and "
+    _log("[10/16] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
     phase_eval_parity(dev)
-    _log("[11/15] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _log("[11/16] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     phase_batched(dev, smi)
     torch.cuda.empty_cache()
     phase_graph_cache(dev, smi)
-    _log("[12/15] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _log("[12/16] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     phase_presets(dev, smi)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[13/15] the training entry point: the tiny recipe and the "
+    _log("[13/16] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
          "shipped recipe through the data pipeline")
     phase_entry(dev)
     phase_recipe(dev, smi)
     torch.cuda.empty_cache()
-    _log("[14/15] serving parity, tiny config f32: controller, int8 and BRS "
+    _log("[14/16] serving parity, tiny config f32: controller, int8 and BRS "
          "sessions, CUDA vs the CPU")
     phase_serving_parity(dev)
-    _log("[15/15] serving at ViT-B@448 bf16: the HTTP service, the demo, "
+    _log("[15/16] serving at ViT-B@448 bf16: the HTTP service, the demo, "
          "user clicks (bf16 and int8), f-BRS-B and RGB-BRS")
     serving = phase_serving(dev, smi)
     for name in ("fused_attention", "fused_attention_bwd", "minplus_rows",
                  "fused_ln_mlp"):
         launches[name] += serving.get(name, 0)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    _log("[16/16] model families: PlainVit ViT-B@448 and the zoo at their "
+         "default configs, bf16; tiny f32 parity")
+    families = phase_families(dev, smi)
+    for name in launches:
+        launches[name] += families.get(name, 0)
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",

@@ -120,6 +120,9 @@ def parse_args(argv=None):
     p.add_argument("--brs-mode", default="NoBRS", choices=BRS_MODES)
     p.add_argument("--int8", action="store_true",
                    help="int8 PTQ serving path (NoBRS only)")
+    p.add_argument("--target-size", type=int, default=448,
+                   help="zoom-in crop of a model without a ViT backbone (a "
+                        "zoo checkpoint); a ViT model uses its own crop")
     p.add_argument("--limit-longest-size", type=int, default=800,
                    help="host-resize larger images down before the session "
                         "(reference demo.py --limit-longest-size, "
@@ -136,9 +139,10 @@ def build_model(args):
     the JAX package's format, or ViT-B@448 with seeded random weights."""
     import torch
     from .inference.predictor import PredictorConfig
-    from .models.vpu import VPUModel, init_vpu, vpu_base_config
+    from .models import registry
+    from .models.vpu import init_vpu, vpu_base_config
     from .nn import resolve_device
-    from .utils.serialization import load_checkpoint, params_from_numpy
+    from .utils.serialization import load_checkpoint
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -146,15 +150,14 @@ def build_model(args):
         flat, cfg, _, _ = load_checkpoint(args.checkpoint)
         mcfg = (cfg.model if hasattr(cfg, "model") else cfg).replace(
             dtype=dtype)
-        model = VPUModel(mcfg)
-        model.load_state_dict(params_from_numpy(flat))
+        model = registry.load(flat, mcfg)
     else:
         if not args.random_weights:
             raise SystemExit("--checkpoint or --random-weights required")
         mcfg = vpu_base_config(dtype=dtype)
         model = init_vpu(mcfg, torch.Generator().manual_seed(0), "cpu")
-    pcfg = PredictorConfig(model=mcfg, target_size=mcfg.backbone.img_size,
-                           prob_thresh=0.49,
+    ts = registry.crop_size(mcfg) or (args.target_size, args.target_size)
+    pcfg = PredictorConfig(model=mcfg, target_size=ts, prob_thresh=0.49,
                            limit_longest_side=args.limit_longest_size)
     return model.to(device), pcfg
 

@@ -13,8 +13,10 @@ The mode is NoBRS, f-BRS-A / B / C, RGB-BRS or DistMap-BRS
 Protocol constants follow evaluate_vpumodel.py: 20 clicks at most, target
 IoU 0.95, threshold 0.49, flip TTA on, zoom-in target the model's crop
 (672 for DAVIS, the position embedding resampled bicubically) with
-skip_clicks=-1 (evaluate_vpumodel.py:54-58,87-90,132,187-204). A
-checkpoint in the JAX package's format carries its config;
+skip_clicks=-1 (evaluate_vpumodel.py:54-58,87-90,132,187-204); a model
+without a ViT backbone (the zoo families) zooms to 448 x 448 and keeps its
+weights. A checkpoint in the JAX package's format carries its config, of
+any registered family (models/registry.py);
 --random-weights builds a seeded ViT-B / L / H for pipeline runs. It runs
 on the card unless --device cpu is given. The table and the pickles are
 those of the JAX CLI. Not ported yet: SAM, --eval-mesh and --vis-preds;
@@ -112,17 +114,16 @@ def parse_args(argv=None):
 def build_model(args):
     """(model on the CPU, its config in the chosen dtype)."""
     import torch
-    from .models.vpu import (VPUModel, init_vpu, vpu_base_config,
-                             vpu_huge_config, vpu_large_config)
-    from .utils.serialization import load_checkpoint, params_from_numpy
+    from .models import registry
+    from .models.vpu import (init_vpu, vpu_base_config, vpu_huge_config,
+                             vpu_large_config)
+    from .utils.serialization import load_checkpoint
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     if args.checkpoint:
         flat, cfg, _, _ = load_checkpoint(args.checkpoint)
         mcfg = cfg.model if hasattr(cfg, "model") else cfg
-        model = VPUModel(mcfg)
-        model.load_state_dict(params_from_numpy(flat))
-        return model, mcfg.replace(dtype=dtype)
+        return registry.load(flat, mcfg), mcfg.replace(dtype=dtype)
     if not args.random_weights:
         raise SystemExit("--checkpoint or --random-weights required")
     make = {"base": vpu_base_config, "large": vpu_large_config,
@@ -136,12 +137,13 @@ def at_crop(model, mcfg, crop):
     it is: `Predictor` moves and casts its model in place). At another crop
     than the model's, the position embedding's grid tokens are resampled
     bicubically (align_corners=False, in f64), as the reference does at
-    evaluation (pos_embed.py:99-128)."""
+    evaluation (pos_embed.py:99-128); a model without a ViT backbone has
+    no position embedding and is copied as it is."""
     import torch
     import torch.nn.functional as F
-    from .models.vpu import VPUModel
+    from .models import registry
     sd = model.state_dict()
-    if tuple(mcfg.backbone.img_size) != tuple(crop):
+    if registry.crop_size(mcfg) not in (None, tuple(crop)):
         (gh, gw), bcfg = mcfg.backbone.grid_size, dataclasses.replace(
             mcfg.backbone, img_size=tuple(crop))
         pos = sd["backbone.pos_embed"]
@@ -153,7 +155,7 @@ def at_crop(model, mcfg, crop):
             [pos[:, :1],
              grid.permute(0, 2, 3, 1).reshape(1, -1, d).to(pos.dtype)], 1)
         mcfg = mcfg.replace(backbone=bcfg)
-    out = VPUModel(mcfg)
+    out = registry.model_for(mcfg)(mcfg)
     out.load_state_dict(sd)
     return out, mcfg
 
@@ -211,6 +213,7 @@ def main(argv=None) -> None:
                                        mean_iou_per_click)
     from .inference.brs import get_predictor
     from .inference.predictor import PredictorConfig
+    from .models import registry
     from .nn import resolve_device
     from .utils.exp import load_config_file
 
@@ -238,7 +241,9 @@ def main(argv=None) -> None:
             si, sn = (int(v) for v in args.shard.split("/"))
             dataset = _Subset(dataset, range(si, len(dataset), sn))
 
-        crop = DATASET_ZOOM.get(name, tuple(mcfg.backbone.img_size))
+        # a ViT model zooms to its crop; the size-agnostic zoo to 448 x 448
+        default_crop = registry.crop_size(mcfg) or (448, 448)
+        crop = DATASET_ZOOM.get(name, default_crop)
         ds_model, ds_mcfg = at_crop(model, mcfg, crop)
         pcfg = PredictorConfig(model=ds_mcfg, target_size=crop,
                                with_flip=True, prob_thresh=args.thresh,

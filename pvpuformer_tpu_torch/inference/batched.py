@@ -21,7 +21,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..models.vpu import VPUModel
+from torch import nn as tnn
+
+from ..models import registry
 from ..nn import inference_model, resolve_device
 from . import graphs
 from .predictor import (NOISE_SEED, PredictorConfig, SessionState,
@@ -32,7 +34,14 @@ from .predictor import batched_click_scan  # noqa: F401  (the eager scan)
 def resolve_batched_cfg(cfg: PredictorConfig) -> PredictorConfig:
     """The batched mode's configuration: the unchunked EDT with the dense
     pass-1 form (bit-identical to the single-session defaults,
-    tests/test_torch_ops.py)."""
+    tests/test_torch_ops.py). The mode takes the ViT-backed families (VPU,
+    PlainVit) only: JAX's `resolve_batched_cfg` reads
+    `cfg.model.backbone`, which a zoo config has not."""
+    if registry.crop_size(cfg.model) is None:
+        raise ValueError(
+            f"the batched mode takes ViT-backed models (VPUConfig, "
+            f"PlainVitConfig), not {type(cfg.model).__name__}: run its "
+            f"sessions one at a time (Predictor, evaluate_dataset)")
     return dataclasses.replace(cfg, edt_chunk=None, edt_rows="dense")
 
 
@@ -42,12 +51,12 @@ class BatchedEvaluator:
     the config's compute dtype, in place, as `Predictor` does; `int8` runs
     a quantized copy (`nn.inference_model`)."""
 
-    def __init__(self, model: VPUModel, cfg: PredictorConfig,
+    def __init__(self, model: tnn.Module, cfg: PredictorConfig,
                  batch_size: int = 8, device=None, int8: bool = False):
+        self.cfg = resolve_batched_cfg(cfg)
         self.device = resolve_device(device)
         self.model = inference_model(model, cfg.model.dtype, self.device,
                                      int8)
-        self.cfg = resolve_batched_cfg(cfg)
         self.batch_size = batch_size
 
     def _canvas(self, h: int, w: int) -> Tuple[int, int]:

@@ -4,8 +4,8 @@ brs.py:9-307, brs_functors.py:9-109, brs_losses.py:6-28).
 
 After each click, auxiliary variables are optimized with scipy's L-BFGS-B
 so that the prediction agrees with the clicks:
-  * f-BRS (`FeatureBRSPredictor`): a per-channel scale and bias on a
-    feature map: the ViT tokens ("tokens", f-BRS-A; the neck and head run
+  * f-BRS (`FeatureBRSPredictor`, VPU models): a per-channel scale and
+    bias on a feature map: the ViT tokens ("tokens", f-BRS-A; the neck and head run
     per evaluation), the neck's four maps ("neck", f-BRS-B; the head runs)
     or the head's fused features ("head", f-BRS-C; only the classifier
     runs). The trunk runs once per click, without autograd.
@@ -20,8 +20,12 @@ early exits); each evaluation is one torch forward plus
 parameters are frozen (`nn.param`), so no weight gradient is formed. The
 ROI, crop and click machinery is the fused predictor's.
 
-Not ported yet: `ZooFeatureBRSPredictor` and the HRNet / DeepLab branches
-of `get_predictor`, which need `models/zoo/*`.
+On the zoo models, `ZooFeatureBRSPredictor` inserts the scale and bias at
+the reference's own points: HRNet "A" (the stride-4 concat of the branches;
+OCR and classifier re-run) and "C" (the pre-classifier OCR features; the
+classifier re-runs), DeepLab "after_c4" (ASPP, decoder and head re-run,
+the skip cached), "after_aspp" and "after_deeplab". RGB-BRS and
+DistMap-BRS run on every registered family through the registry's forward.
 """
 from __future__ import annotations
 
@@ -31,11 +35,18 @@ import numpy as np
 import torch
 from scipy.optimize import fmin_l_bfgs_b
 
+from torch import nn as tnn
+
 from .. import nn
 from ..models.fpn import neck_forward
+from ..models.registry import forward_for
 from ..models.seg_head import _fuse, head_forward
 from ..models.vpu import (VPUConfig, VPUModel, coord_features, prepare_input,
-                          vpu_backbone_embed, vpu_forward)
+                          vpu_backbone_embed)
+from ..models.zoo.deeplab import (DeeplabISConfig, deeplab_aspp_concat,
+                                  deeplab_backbone, deeplab_decoder,
+                                  deeplab_seg_head)
+from ..models.zoo.hrnet import HRNetISConfig, _ocr, _ocr_pre_cls, hrnet_feats
 from ..ops.edt import next_click_from_error
 from ..ops.ppue import ppue_click
 from ..ops.resize import bilinear_resize, roi_crop_resize, roi_paste_back
@@ -183,12 +194,76 @@ def _head_objective(model: VPUModel, cfg: VPUConfig, fused, opt, pos, neg,
             (logits, fmax_pos, fmax_neg))
 
 
-def _input_objective(model: VPUModel, cfg: VPUConfig, crop, pts, delta, pos,
+# --- f-BRS on the zoo models: one trunk / tail split per insertion point ---
+
+@torch.no_grad()
+def _zoo_trunk(model: tnn.Module, cfg, crop, pts, insertion: str):
+    """(feat, rest): `feat` gets the scale / bias, `rest` passes through to
+    the tail."""
+    crop = crop.to(cfg.dtype)
+    if isinstance(cfg, HRNetISConfig):
+        feats = hrnet_feats(model, cfg, crop, pts)
+        if insertion == "A":
+            return feats, ()
+        return _ocr_pre_cls(model.ocr, feats)[0], ()
+    if not isinstance(cfg, DeeplabISConfig):
+        raise ValueError(f"f-BRS on a zoo model takes HRNet or DeepLab, not "
+                         f"{type(cfg).__name__}")
+    skip, c4 = deeplab_backbone(model, cfg, crop, pts)
+    if insertion == "after_c4":
+        return c4, (skip,)
+    y = deeplab_aspp_concat(model, c4, skip)
+    if insertion == "after_aspp":
+        return y, ()
+    return deeplab_decoder(model, y), ()
+
+
+def _tail_hrnet_A(model, mod):
+    return _ocr(model.ocr, mod)[0]
+
+
+def _tail_hrnet_C(model, mod):
+    return nn.conv1x1(model.ocr.cls, mod)
+
+
+def _tail_deeplab_c4(model, mod, skip):
+    y = deeplab_aspp_concat(model, mod, skip)
+    return deeplab_seg_head(model, deeplab_decoder(model, y))
+
+
+def _tail_deeplab_aspp(model, mod):
+    return deeplab_seg_head(model, deeplab_decoder(model, mod))
+
+
+def _tail_deeplab_head(model, mod):
+    return deeplab_seg_head(model, mod)
+
+
+_ZOO_TAILS = {"A": _tail_hrnet_A, "C": _tail_hrnet_C,
+              "after_c4": _tail_deeplab_c4, "after_aspp": _tail_deeplab_aspp,
+              "after_deeplab": _tail_deeplab_head}
+
+
+def _zoo_objective(tail: Callable, model: tnn.Module, feat, rest, opt, pos,
+                   neg, reg_weight: float, reg_bias_weight: float,
+                   with_flip: bool, th: int, tw: int):
+    """Scale / bias on a zoo model's insertion map; the tail re-runs."""
+    d = feat.shape[-1]
+    scale, bias = opt[:d], opt[d:]
+    logits = bilinear_resize(tail(model, _modulate(feat, scale, bias), *rest),
+                             th, tw, align_corners=True)
+    loss, fmax_pos, fmax_neg = _loss(logits, pos, neg, with_flip)
+    return (loss + _reg(scale, bias, reg_weight, reg_bias_weight),
+            (logits, fmax_pos, fmax_neg))
+
+
+def _input_objective(model: tnn.Module, cfg, crop, pts, delta, pos,
                      neg, reg_weight: float, with_flip: bool, th: int,
                      tw: int, target: str):
-    """RGB-BRS / DistMap-BRS (brs.py:252-290): target "rgb" adds the delta
-    to the image channels before normalization; "dmaps" adds it to the two
-    disk channels (`coord_bias`). A full forward."""
+    """RGB-BRS / DistMap-BRS (brs.py:252-290) on any registered family:
+    target "rgb" adds the delta to the image channels before normalization;
+    "dmaps" adds it to the two disk channels (`coord_bias`). A full
+    forward."""
     reg = reg_weight * delta.square().sum()
     nch = 3 if target == "rgb" else 2
     d = delta.reshape(1, th, tw, nch)
@@ -199,8 +274,8 @@ def _input_objective(model: VPUModel, cfg: VPUConfig, crop, pts, delta, pos,
         crop = torch.cat([crop[..., :3] + d.to(crop.dtype), crop[..., 3:]], -1)
     else:
         coord_bias = d
-    logits = vpu_forward(model, cfg, crop, pts, prompt_type=0,
-                         coord_bias=coord_bias)["instances"]
+    logits = forward_for(cfg)(model, cfg, crop, pts, prompt_type=0,
+                              coord_bias=coord_bias)["instances"]
     loss, fmax_pos, fmax_neg = _loss(logits, pos, neg, with_flip)
     return loss + reg, (logits, fmax_pos, fmax_neg)
 
@@ -405,14 +480,34 @@ class FeatureBRSPredictor:
         return self.state.points[0].cpu().numpy()
 
 
+class ZooFeatureBRSPredictor(FeatureBRSPredictor):
+    """f-BRS at the reference's own insertion points of the zoo models:
+    HRNet "A" / "C" (HRNetFeatureBRSPredictor) and DeepLab "after_c4" /
+    "after_aspp" / "after_deeplab" (FeatureBRSPredictor)."""
+
+    _INSERTIONS = ("A", "C", "after_c4", "after_aspp", "after_deeplab")
+
+    def _setup(self, crop, pts):
+        model, mcfg = self.model, self.cfg.model
+        feat, rest = _zoo_trunk(model, mcfg, crop, pts, self.insertion)
+        tail = _ZOO_TAILS[self.insertion]
+        th, tw = self.cfg.target_size
+        kw = (self.reg_weight, self.reg_bias_weight, self.cfg.with_flip,
+              th, tw)
+
+        def objective(opt, pos, neg):
+            return _zoo_objective(tail, model, feat, rest, opt, pos, neg, *kw)
+        return objective, 2 * feat.shape[-1]
+
+
 class InputBRSPredictor(FeatureBRSPredictor):
     """RGB-BRS / DistMap-BRS (brs.py:247-307): L-BFGS over an input
     perturbation, reset every click; every evaluation is a full forward
     and backward. `optimize_target` "rgb" (a 3-channel image delta) or
-    "dmaps" (a 2-channel disk delta). The VPU forward is called directly:
-    the model registry comes with the zoo models."""
+    "dmaps" (a 2-channel disk delta). Any registered family: the forward
+    is the registry's."""
 
-    def __init__(self, model: VPUModel, cfg: PredictorConfig,
+    def __init__(self, model: tnn.Module, cfg: PredictorConfig,
                  optimize_target: str = "rgb", **kw):
         if optimize_target not in ("rgb", "dmaps"):
             raise ValueError(f"optimize_target {optimize_target!r} is not "
@@ -441,30 +536,41 @@ class InputBRSPredictor(FeatureBRSPredictor):
         return self._finish(st, logits, roi, has_roi)
 
 
-def get_predictor(model: VPUModel, cfg: PredictorConfig,
+def get_predictor(model: tnn.Module, cfg: PredictorConfig,
                   brs_mode: str = "NoBRS", int8: bool = False, device=None,
                   **brs_kwargs):
-    """predictors/__init__.py:9-99's factory for the VPU model: NoBRS,
-    f-BRS-A/B/C (insertions tokens / neck / head), RGB-BRS and DistMap-BRS.
-    int8 is NoBRS only: BRS differentiates the forward, and int8 rounding
-    has no useful gradient."""
+    """predictors/__init__.py:9-99's factory: NoBRS, f-BRS-A/B/C, RGB-BRS
+    and DistMap-BRS. f-BRS maps its letter to an insertion point per
+    family: HRNet A / A / C, DeepLab after_c4 / after_aspp / after_deeplab,
+    VPU tokens / neck / head; any other family has no f-BRS (ValueError,
+    as in JAX). int8 is NoBRS only: BRS differentiates the forward, and
+    int8 rounding has no useful gradient."""
     mode = brs_mode.lower()
     if mode == "nobrs":
         return Predictor(model, cfg, device=device, int8=int8)
     if int8:
         raise ValueError("int8 PTQ is NoBRS only: BRS optimizes through the "
                          "forward's gradient, which int8 rounding destroys")
-    if not isinstance(cfg.model, VPUConfig):
-        raise NotImplementedError(
-            f"BRS on {type(cfg.model).__name__}: the zoo models "
-            f"(models/zoo/*) and their f-BRS insertion points are not "
-            f"ported yet (ROADMAP Queue 1, slice 6)")
     letter = {"f-brs-a": "a", "f-brs": "a", "f-brs-b": "b",
               "f-brs-c": "c"}.get(mode)
     if letter is not None:
-        brs_kwargs.setdefault("insertion", {"a": "tokens", "b": "neck",
-                                            "c": "head"}[letter])
-        return FeatureBRSPredictor(model, cfg, device=device, **brs_kwargs)
+        m = cfg.model
+        if isinstance(m, HRNetISConfig):
+            insertion = {"a": "A", "b": "A", "c": "C"}[letter]
+        elif isinstance(m, DeeplabISConfig):
+            insertion = {"a": "after_c4", "b": "after_aspp",
+                         "c": "after_deeplab"}[letter]
+        elif isinstance(m, VPUConfig):
+            insertion = {"a": "tokens", "b": "neck", "c": "head"}[letter]
+        else:
+            raise ValueError(
+                f"f-BRS has no insertion map for {type(m).__name__} (the "
+                f"reference has DeepLab / HRNet only; VPU added) — use "
+                f"NoBRS, RGB-BRS or DistMap-BRS")
+        brs_kwargs.setdefault("insertion", insertion)
+        klass = FeatureBRSPredictor if isinstance(m, VPUConfig) \
+            else ZooFeatureBRSPredictor
+        return klass(model, cfg, device=device, **brs_kwargs)
     if mode in ("rgb-brs", "input-brs", "distmap-brs"):
         brs_kwargs.setdefault(
             "optimize_target", "dmaps" if mode == "distmap-brs" else "rgb")

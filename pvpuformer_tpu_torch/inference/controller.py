@@ -17,8 +17,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch import nn as tnn
 
-from ..models.vpu import VPUModel
 from ..nn import quantize_params
 from .predictor import PredictorConfig, SessionState
 
@@ -39,10 +39,10 @@ class InteractiveController:
     (a server passes one copy to all its sessions). The session lies on
     `device` (None: the card)."""
 
-    def __init__(self, model: VPUModel, cfg: PredictorConfig,
+    def __init__(self, model: tnn.Module, cfg: PredictorConfig,
                  prob_thresh: float = 0.5, predictor=None,
                  brs_mode: str = "NoBRS", int8: bool = False, device=None,
-                 int8_model: Optional[VPUModel] = None):
+                 int8_model: Optional[tnn.Module] = None):
         self.model = model
         self.cfg = cfg
         self.prob_thresh = prob_thresh

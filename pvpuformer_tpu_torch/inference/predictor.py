@@ -5,7 +5,8 @@ click runs:
   1. the oracle next click (exact EDT over the FN / FP error masks);
   2. the zoom-in ROI update (data-dependent bounds held as a tensor);
   3. crop + resize of image and prev-mask, click remap, flip-TTA batch of 2;
-  4. disk maps + PPuE click encoding + the VPU forward;
+  4. the model's forward (any registered family: for VPU the disk maps,
+     the PPuE click encoding and the VPU forward);
   5. flip-average, sigmoid, paste-back into the canvas, and IoU.
 The ROI, click slots and counters stay on the device, so a click is one
 stream of launches with no host synchronisation. Every step is written
@@ -24,7 +25,7 @@ the definition and the CPU path; `Predictor` runs its rounds through
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +33,9 @@ import torch
 from ..engine.prompt_sim import (_bbox, _first_true,
                                  connected_regions_mask_batch, synth_boxes,
                                  synth_scribbles)
-from ..models.vpu import VPUConfig, VPUModel, vpu_forward
+from torch import nn as tnn
+
+from ..models.registry import forward_for
 from ..nn import inference_model, resolve_device
 from ..ops.edt import next_click_from_error, squared_edt_pair
 from ..ops.resize import roi_crop_resize, roi_paste_back
@@ -49,8 +52,9 @@ class PredictorConfig:
     """Field names match the JAX PredictorConfig. `edt_impl` is read but not
     honoured: on CUDA the min-plus pass always runs the hand-written kernel.
     `edt_chunk` sizes the plain min-plus version's blocks; `edt_rows`
-    selects the pass-1 form (bit-identical)."""
-    model: VPUConfig
+    selects the pass-1 form (bit-identical). `model` is any registered
+    model family's config (models/registry.py)."""
+    model: Any
     target_size: Tuple[int, int] = (448, 448)
     with_flip: bool = True
     prob_thresh: float = 0.49
@@ -578,8 +582,8 @@ def _prompt_inputs(cfg: PredictorConfig, state: SessionState,
     return pts, boxes, scribbles, ppue_points, cfg.prompt_mode
 
 
-def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
-                   points: torch.Tensor, prev_probs: torch.Tensor,
+def _forward_round(model: tnn.Module, cfg: PredictorConfig,
+                   state: SessionState, points: torch.Tensor, prev_probs: torch.Tensor,
                    noise: Optional[Dict[str, torch.Tensor]] = None):
     """ROI update + crop + net forward + paste-back of a batch of sessions,
     using `prev_probs`. `noise`: the click's prompt draws (prompt_mode 1 / 2),
@@ -602,8 +606,9 @@ def _forward_round(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     if cfg.prompt_mode != 0:
         pts, boxes, scribbles, ppue_points, prompt_type = _prompt_inputs(
             cfg, state, crop, pts, roi, noise)
-    logits = vpu_forward(model, cfg.model, crop, pts, boxes, scribbles,
-                         prompt_type, ppue_points)["instances"]
+    logits = forward_for(cfg.model)(
+        model, cfg.model, crop, pts, boxes=boxes, scribbles=scribbles,
+        prompt_type=prompt_type, ppue_points=ppue_points)["instances"]
     if cfg.with_flip:
         logits = 0.5 * (logits[:b] + logits[b:].flip(2))
     probs = torch.sigmoid(logits.float())
@@ -680,7 +685,7 @@ def _draw_noise(cfg: PredictorConfig, gen: Optional[torch.Generator],
     return _prompt_noise(cfg, gen, device)
 
 
-def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
+def _click_step(model: tnn.Module, cfg: PredictorConfig, states: SessionState,
                 noise: Optional[Dict[str, torch.Tensor]]):
     """One interactive round of every session of a batch: (new states,
     ious (B,)). One min-plus launch for the B oracle clicks and one model
@@ -717,7 +722,7 @@ def _click_step(model: VPUModel, cfg: PredictorConfig, states: SessionState,
     return st, _iou(cfg, st, probs)
 
 
-def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState,
+def click_step(model: tnn.Module, cfg: PredictorConfig, state: SessionState,
                gen: Optional[torch.Generator] = None):
     """One full interactive round of one session. Returns (new_state, iou).
     `gen` (a CPU generator) supplies the prompt draws of prompt_mode 1 / 2,
@@ -728,7 +733,7 @@ def click_step(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     return session(st, 0), iou[0]
 
 
-def batched_click_step(model: VPUModel, cfg: PredictorConfig,
+def batched_click_step(model: tnn.Module, cfg: PredictorConfig,
                        states: SessionState,
                        gen: Optional[torch.Generator] = None):
     """One round of every session of a batch (`stack_states`): (new states,
@@ -739,7 +744,7 @@ def batched_click_step(model: VPUModel, cfg: PredictorConfig,
                        _draw_noise(cfg, gen, states.image.device))
 
 
-def user_click_step(model: VPUModel, cfg: PredictorConfig,
+def user_click_step(model: tnn.Module, cfg: PredictorConfig,
                     state: SessionState, y: torch.Tensor, x: torch.Tensor,
                     is_positive: torch.Tensor):
     """One round of one session with a user's click in place of the
@@ -754,7 +759,7 @@ def user_click_step(model: VPUModel, cfg: PredictorConfig,
     return session(st, 0), iou[0]
 
 
-def _user_click_step(model: VPUModel, cfg: PredictorConfig,
+def _user_click_step(model: tnn.Module, cfg: PredictorConfig,
                      states: SessionState, y: torch.Tensor, x: torch.Tensor,
                      is_positive: torch.Tensor):
     """`user_click_step` on a batch of one session: (states, ious (1,))."""
@@ -767,7 +772,7 @@ def _user_click_step(model: VPUModel, cfg: PredictorConfig,
     return states, _iou(cfg, states, probs)
 
 
-def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,
+def click_scan(model: tnn.Module, cfg: PredictorConfig, state: SessionState,
                num_clicks: int, gen: Optional[torch.Generator] = None):
     """`num_clicks` rounds; returns (final state, ious (num_clicks,) tensor).
     The prompt draws of all rounds come from `gen` (None: one generator
@@ -781,7 +786,7 @@ def click_scan(model: VPUModel, cfg: PredictorConfig, state: SessionState,
     return state, torch.stack(ious)
 
 
-def batched_click_scan(model: VPUModel, cfg: PredictorConfig,
+def batched_click_scan(model: tnn.Module, cfg: PredictorConfig,
                        states: SessionState, num_clicks: int,
                        gen: Optional[torch.Generator] = None):
     """`num_clicks` rounds of a batch of sessions. Returns (final states,
@@ -812,7 +817,7 @@ class Predictor:
     JAX's per-shape compile cache) once a shape's first round has run
     eagerly; on the CPU eagerly."""
 
-    def __init__(self, model: VPUModel, cfg: PredictorConfig, device=None,
+    def __init__(self, model: tnn.Module, cfg: PredictorConfig, device=None,
                  int8: bool = False):
         self.device = resolve_device(device)
         self.model = inference_model(model, cfg.model.dtype, self.device,

@@ -44,13 +44,18 @@ class NeckConfig:
 
 
 class Neck(tnn.Module):
+    """The neck's tree. Without `prompts` it has only the four conv
+    branches: the plain SimpleFPN of PlainVit (no prompt FFN, no two-way
+    transformer)."""
+
     def __init__(self, cfg: NeckConfig, grid_hw: Tuple[int, int],
-                 g: Optional[torch.Generator] = None):
+                 g: Optional[torch.Generator] = None, prompts: bool = True):
         super().__init__()
         d, od = cfg.in_dim, cfg.out_dims
         c4, c8, c32 = cfg.down4_chan, cfg.down8_chan, cfg.down32_chan
-        self.ffn = nn.Mlp(cfg.prompt_dim, cfg.hide_dim * 2, d, g=g)
-        self.att = TwoWay(cfg.two_way, grid_hw, g)
+        if prompts:
+            self.ffn = nn.Mlp(cfg.prompt_dim, cfg.hide_dim * 2, d, g=g)
+            self.att = TwoWay(cfg.two_way, grid_hw, g)
         self.down4 = nn.Node(
             deconv1=nn.Deconv2x2(d, c4, g), gn1=nn.Norm(c4),
             deconv2=nn.Deconv2x2(c4, c4 // 2, g), gn2=nn.Norm(c4 // 2),

@@ -104,14 +104,18 @@ class Norm(nn.Module):
 
 
 class Conv(nn.Module):
-    """HWIO conv weights (torch Conv2d init)."""
+    """HWIO conv weights (torch Conv2d init); with `groups` the weight is
+    (kh, kw, in_ch // groups, out_ch), as in JAX `init_conv`."""
 
     def __init__(self, kh: int, kw: int, in_ch: int, out_ch: int,
-                 g: Optional[torch.Generator] = None):
+                 g: Optional[torch.Generator] = None, bias: bool = True,
+                 groups: int = 1):
         super().__init__()
-        fan_in = kh * kw * in_ch
-        self.w = param(kaiming_uniform((kh, kw, in_ch, out_ch), g, fan_in))
-        self.b = param(_uniform((out_ch,), math.sqrt(1.0 / fan_in), g))
+        fan_in = kh * kw * (in_ch // groups)
+        self.w = param(kaiming_uniform((kh, kw, in_ch // groups, out_ch), g,
+                                       fan_in))
+        self.b = (param(_uniform((out_ch,), math.sqrt(1.0 / fan_in), g))
+                  if bias else None)
 
 
 class Deconv2x2(nn.Module):
@@ -346,34 +350,41 @@ def group_norm1(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def conv2d(p, x: torch.Tensor, stride: int = 1,
-           padding: str | Sequence = "TORCH") -> torch.Tensor:
-    """NHWC/HWIO conv. "TORCH" pads k//2 per side (torch Conv2d(padding=k//2));
-    "VALID" pads nothing.
+           padding: str | Sequence = "TORCH", groups: int = 1,
+           dilation: int = 1) -> torch.Tensor:
+    """NHWC/HWIO conv (JAX `nn.conv2d` / `conv_nhwc`). "TORCH" pads
+    dilation * (k // 2) per side (torch Conv2d(padding=k//2), and the
+    zoo's dilated convs' padding=dilation); "SAME" is the same at stride 1;
+    "VALID" pads nothing. `groups` > 1 takes the (kh, kw, in/groups, out)
+    weight of a grouped or depthwise conv. A container without `b` adds no
+    bias.
 
     In f32, a VALID conv whose stride is its square kernel (the neck's
-    2x2 / 2 down32 conv, the only conv of the VPU model) is a patch matmul:
-    it then never meets cuDNN, whose `allow_tf32` defaults to True
-    (PyTorch's matmul default is full f32), in the forward or the backward.
-    Every other conv goes to cuDNN under torch's flags."""
+    2x2 / 2 down32 conv) is a patch matmul (PyTorch's matmul default is
+    full f32); every other f32 conv on the card runs in cuDNN, with TF32
+    off once an entry point has placed a model there (`resolve_device`)."""
     kh, kw = p.w.shape[0], p.w.shape[1]
-    if x.dtype == torch.float32 and padding == "VALID" and kh == kw == stride:
+    if (x.dtype == torch.float32 and padding == "VALID" and kh == kw == stride
+            and groups == 1 and dilation == 1):
         b, h, w, c = x.shape
         x = x[:, :h // kh * kh, :w // kw * kw]
         return patch_embed(p, x, (kh, kw)).reshape(b, h // kh, w // kw, -1)
-    if padding == "TORCH":
-        pad = (kh // 2, kw // 2)
+    if padding == "TORCH" or (padding == "SAME" and stride == 1):
+        pad = (dilation * (kh // 2), dilation * (kw // 2))
     elif padding == "VALID":
         pad = (0, 0)
     else:
         raise ValueError(f"conv2d: unsupported padding {padding!r}")
     w = p.w.to(x.dtype).permute(3, 2, 0, 1)              # HWIO -> OIHW
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=pad)
-    return y.permute(0, 2, 3, 1) + p.b.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=pad,
+                 dilation=dilation, groups=groups)
+    y = y.permute(0, 2, 3, 1)
+    return y if p.b is None else y + p.b.to(x.dtype)
 
 
 def conv1x1(p, x: torch.Tensor) -> torch.Tensor:
     y = x @ p.w.reshape(p.w.shape[-2], p.w.shape[-1]).to(x.dtype)
-    return y + p.b.to(x.dtype)
+    return y if p.b is None else y + p.b.to(x.dtype)
 
 
 def deconv2x2(p, x: torch.Tensor) -> torch.Tensor:
@@ -422,9 +433,16 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: None means the card ("cuda").
-    Without a card this raises instead of running on the CPU unasked."""
+    Without a card this raises instead of running on the CPU unasked.
+
+    On the card it pins the package's one precision flag: cuDNN's TF32 off
+    (torch's `cudnn.allow_tf32` defaults to True), so that f32 convs run in
+    full f32 as the JAX package's do. bf16 convs and f32 matmuls (torch's
+    default is full f32) are not affected."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: pass device=\"cpu\" "
-                           "to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available: pass "
+                               "device=\"cpu\" to run on the CPU")
+        torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -213,6 +213,7 @@ def parse_args(argv=None):
                    help="torch device (default: the card)")
     args = p.parse_args(argv)
     args.limit_longest_size = 800
+    args.target_size = 448             # a zoo checkpoint's crop, as JAX's
     return args
 
 

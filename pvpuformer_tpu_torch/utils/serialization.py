@@ -39,10 +39,10 @@ def _registry() -> Dict[str, Any]:
     from ..models.seg_head import HeadConfig
     from ..models.two_way import TwoWayConfig
     from ..models.vit import ViTConfig
-    from ..models.vpu import VPUConfig
+    from ..models.registry import CONFIGS
     from ..ops.ppue import PPuEConfig
-    classes = [ViTConfig, TwoWayConfig, NeckConfig, HeadConfig, VPUConfig,
-               PPuEConfig, PredictorConfig, TrainConfig]
+    classes = [ViTConfig, TwoWayConfig, NeckConfig, HeadConfig, PPuEConfig,
+               PredictorConfig, TrainConfig, *CONFIGS]
     return {c.__name__: c for c in classes}
 
 

@@ -245,8 +245,11 @@ def test_factory(weights):
         brs.get_predictor(model, cfg, "f-BRS-A", int8=True, device="cpu")
     with pytest.raises(ValueError, match="unknown BRS mode"):
         brs.get_predictor(model, cfg, "X-BRS", device="cpu")
+    # a family without an f-BRS insertion map (here a stand-in class that
+    # only shares HRNet's name) is refused as JAX refuses it; the zoo's own
+    # insertion maps are held in tests/test_torch_zoo_brs.py
     zoo = type("HRNetISConfig", (), {})()
-    with pytest.raises(NotImplementedError, match="models/zoo"):
+    with pytest.raises(ValueError, match="no insertion map for HRNetISConfig"):
         brs.get_predictor(model, cfg.__class__(model=zoo), "f-BRS-A",
                           device="cpu")
 

@@ -32,7 +32,11 @@ padded and unpadded shapes; the int8 linear bit-identical to the CPU's;
 tiny f32 user-click rounds within 1e-5 of the CPU's (int8: 5e-3, the int8
 session noise of tests/test_torch_quant.py), captured into a CUDA graph;
 RGB-BRS / DistMap-BRS objectives' gradients within 1e-4 of their largest
-entry; chip_smoke.py phase 14's sessions at its tolerances."""
+entry; chip_smoke.py phase 14's sessions at its tolerances. The model
+families: a bf16 PlainVit click round launches the fused attention and
+LN+MLP kernels once per block and the min-plus kernel once, and no SDPA;
+each zoo family's f32 forward within 1e-4 of the CPU's, relative to the
+largest logit."""
 import dataclasses
 import types
 
@@ -828,3 +832,100 @@ def test_undo_keeps_a_copy_across_replays(cuda):
         assert torch.equal(a, b)
     static = {t.data_ptr() for r in graphs._graphs.values() for t in r.state}
     assert not static & {t.data_ptr() for t in pred.state}
+
+
+def _plainvit_config(dtype):
+    """A small PlainVit whose blocks fit the bf16 LN+MLP kernel (D = 128,
+    the kernel's least width; head dim 64)."""
+    from pvpuformer_tpu_torch.models.fpn import NeckConfig
+    from pvpuformer_tpu_torch.models.plainvit import PlainVitConfig
+    from pvpuformer_tpu_torch.models.seg_head import HeadConfig
+    from pvpuformer_tpu_torch.models.vit import ViTConfig
+    return PlainVitConfig(
+        backbone=ViTConfig(img_size=(128, 128), patch_size=(16, 16),
+                           embed_dim=128, depth=4, num_heads=2,
+                           window_pixels=64),
+        neck=NeckConfig(in_dim=128, out_dims=(16, 32, 48, 64),
+                        img_size=(128, 128), hide_dim=64),
+        head=HeadConfig(in_channels=(16, 32, 48, 64), channels=32,
+                        d_model=128, ed_loss=False),
+        num_max_points=6, dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_plainvit_bf16_click_runs_the_kernels_and_no_sdpa(cuda, monkeypatch):
+    """One eager bf16 PlainVit click round on the card calls the fused
+    attention kernel and the LN+MLP kernel once per block and the min-plus
+    kernel once, and never torch's scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    from pvpuformer_tpu_torch.inference.predictor import (PredictorConfig,
+                                                         click_step,
+                                                         init_session)
+    from pvpuformer_tpu_torch.models.plainvit import init_plainvit
+    from pvpuformer_tpu_torch.nn import inference_model
+
+    def no_sdpa(*a, **kw):
+        raise AssertionError("scaled_dot_product_attention was called")
+    monkeypatch.setattr(F, "scaled_dot_product_attention", no_sdpa)
+    cfg = _plainvit_config(torch.bfloat16)
+    model = inference_model(init_plainvit(
+        cfg, torch.Generator().manual_seed(0), "cpu"), torch.bfloat16, cuda)
+    pcfg = PredictorConfig(model=cfg, target_size=(128, 128),
+                           min_crop_size=64)
+    r = np.random.default_rng(0)
+    image = (r.uniform(size=(120, 150, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((120, 150), np.float32)
+    gt[30:90, 40:110] = 1.0
+    state = init_session(image, gt, 6, (128, 192), cuda)
+    kernels = (fused_attention.fused_attention, attention.flash_attention,
+               edt_minplus.minplus_rows, fused_mlp.fused_ln_mlp)
+    for k in kernels:
+        k.launches = 0
+    with torch.no_grad():
+        state, iou = click_step(model, pcfg, state)
+        iou = float(iou)
+    assert np.isfinite(iou) and 0.0 <= iou <= 1.0
+    depth = cfg.backbone.depth
+    assert [k.launches for k in kernels] == [depth, 0, 1, depth]
+
+
+ZOO_CUDA_CONFIGS = {
+    "segformer": dict(embed_dims=(16, 32, 48, 64), depths=(1, 1, 1, 1),
+                      num_heads=(1, 2, 3, 4), head_channels=32),
+    "hrnet": dict(width=8, small=True, ocr_width=16),
+    "deeplab": dict(ch=32),
+    "swin": dict(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                 head_channels=16, window=4),
+    "hrformer": dict(width=8, num_heads=(1, 2, 4, 8), num_units=(1, 1, 1),
+                     window=4, ocr_width=16),
+    "swin_unet": dict(embed_dim=16, depths=(1, 1, 1, 1),
+                      num_heads=(1, 2, 4, 8), window=4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(ZOO_CUDA_CONFIGS))
+def test_zoo_forward_on_the_card_matches_cpu(cuda, family):
+    """Each zoo family's f32 forward (tests/test_zoo.py's tiny configs) on
+    the card within 1e-4 of its CPU twin relative to the largest logit.
+    The model is placed through `registry.build`, whose `resolve_device`
+    pins cuDNN's TF32 off (torch's default would run f32 convs in TF32)."""
+    import importlib
+    from pvpuformer_tpu_torch.models import registry
+    mod = importlib.import_module(f"pvpuformer_tpu_torch.models.zoo.{family}")
+    cls = next(getattr(mod, n) for n in dir(mod) if n.endswith("ISConfig"))
+    cfg = cls(**ZOO_CUDA_CONFIGS[family])
+    r = np.random.default_rng(1)
+    img = torch.from_numpy(r.uniform(size=(2, 64, 64, 4)).astype(np.float32))
+    pts = torch.full((2, 8, 3), -1.0)
+    pts[0, 0] = torch.tensor([30.0, 30.0, 0.0])
+    pts[1, 4] = torch.tensor([10.0, 50.0, 1.0])
+    out = {}
+    for where in ("cpu", cuda):
+        model = registry.build(cfg, torch.Generator().manual_seed(0), where)
+        with torch.no_grad():
+            out[str(where)] = registry.forward_for(cfg)(
+                model, cfg, img.to(where), pts.to(where))["instances"].cpu()
+    want = out["cpu"]
+    err = float((out[str(cuda)] - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err

@@ -40,6 +40,16 @@ import pvpuformer_tpu_torch.inference.brs
 import pvpuformer_tpu_torch.inference.controller
 import pvpuformer_tpu_torch.serve, pvpuformer_tpu_torch.demo
 import pvpuformer_tpu_torch.demo_widgets
+import pvpuformer_tpu_torch.models.registry
+import pvpuformer_tpu_torch.models.plainvit
+import pvpuformer_tpu_torch.models.zoo.common
+import pvpuformer_tpu_torch.models.zoo.hrnet
+import pvpuformer_tpu_torch.models.zoo.deeplab
+import pvpuformer_tpu_torch.models.zoo.segformer
+import pvpuformer_tpu_torch.models.zoo.swin
+import pvpuformer_tpu_torch.models.zoo.hrformer
+import pvpuformer_tpu_torch.models.zoo.swin_unet
+import pvpuformer_tpu_torch.inference.tiled
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton',
                                     'tkinter', 'demo', 'demo_widgets'))
