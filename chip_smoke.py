@@ -165,9 +165,30 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      round), replayed rounds against the eager `click_scan`
      (bit-identical, p50 ms per click), and one f-BRS-A click of HRNet and
      DeepLab; one {"phase16": ...} JSON line with the p50s;
+ 17. scale-out (parallel/): (a) two ranks on this one card over gloo
+     (NCCL refuses two ranks on one card), processes chip_smoke starts
+     itself (`--worker scaleout`, `parallel.dist.init(backend="gloo")`):
+     "replicated" ViT-B@448 bf16 training, global batch 8 (4 rows a
+     rank), 2 steps of 3 rounds each with a box round: both ranks' losses
+     identical and within SCALE_LOSS_TOL of one process on the global
+     batch, the wrapper launches per rank; then `BatchedEvaluator(mesh=)`
+     with B = 16 (8 sessions a rank) x 20 clicks on 16 Synthetic objects
+     against one process's B = 16: equal clicks, IoU within SCALE_IOU_TOL;
+     (b) FSDP at world size 1 under NCCL in a process of
+     `torch.distributed.run --nproc-per-node 1` (`--worker fsdp`): the
+     ViT-L recipe's `build_trainer` in its default mode ("fsdp") against
+     the same recipe unsharded, batch 4 of the synthetic raw source, 2
+     steps of 3 rounds from the same batches and draws: losses and the
+     checkpoints (whole parameters and Adam moments) within FSDP_TOL, the
+     wrapper launches, and one more FSDP step traced by torch.profiler
+     showing the attention forward and backward, LN+MLP, min-plus and CC
+     kernels on the card; (c) `python -m torch.distributed.run
+     --nproc-per-node 1 -m pvpuformer_tpu_torch.evaluate --batched 16
+     --eval-mesh 1` exits 0 with its NoC table; ms per step at W = 1 / 2,
+     the collectives per step, and the phase's and the script's seconds;
 then one JSON line of kernel summaries (launches: the wrapper counts
-summed over the paths of phases 5, 7, 9, 15 and 16), the card's name and
-power limit, and, last, {"ok": true, "device": ...}.
+summed over the paths of phases 5, 7, 9, 15, 16 and 17), the card's name
+and power limit, and, last, {"ok": true, "device": ...}.
 
 LAUNCH CHECKS. A kernel wrapper counts its calls where it launches: in an
 eager round and in the capture of a round, which records the launch into
@@ -191,12 +212,15 @@ the host-clock median of unprofiled rounds beside it; then the replayed
 click round of PlainVit ViT-B@448 and of each zoo family at its default
 config the same way (`profile_families`).
 
-No phase's depth was cut for time: the whole script, the build included,
-takes about 570 s on an NVIDIA H100 80GB HBM3 at 700 W (phase 5's two
+No phase's depth was cut for time: phases 1-16, the build included,
+took about 570 s on an NVIDIA H100 80GB HBM3 at 700 W (phase 5's two
 bench processes about 65 s of it, phase 16 about 70 s; the launch
 checks' second runs under the profiler, each window opened by 0.25 s of
 guard kernels, and the graph-cache workload add the most beyond the
-phases themselves), of its 1200 s limit.
+phases themselves), and phase 17 about 165 s more (its FSDP process
+about 95 s, most of it building ViT-L twice on the host), of the
+script's 1200 s limit; the last lines print the phase's and the whole
+script's seconds.
 """
 from __future__ import annotations
 
@@ -3505,18 +3529,536 @@ def phase_families(dev, card: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 17: scale-out on the card (parallel/, the Trainer's and
+# BatchedEvaluator's mesh, the CLIs' mesh flags)
+# ---------------------------------------------------------------------------
+
+SCALE_BATCH = 8           # 17a: the global batch, 4 rows a rank
+SCALE_STEPS = 2           # 17a / 17b: steps of SCALE_ITERS rounds
+SCALE_ITERS = 3
+SCALE_EVAL_B = 16         # 17a: sessions a chunk, 8 a rank
+FSDP_BATCH = 4            # 17b: the ViT-L recipe's batch
+CHILD_TIMEOUT = 600       # s: each process phase 17 starts
+# 17a, 2 gloo ranks against one process on the global batch: |dloss| of
+# each step; 7.530e-03 measured on losses of 14.5 and 17.4 (H100 80GB HBM3,
+# 700 W): cuBLAS rounds the bf16 products of a 4-row batch otherwise than
+# those of an 8-row one
+SCALE_LOSS_TOL = 2e-2
+# 17a: |dIoU| of the sharded B = 16 evaluation (8 sessions a rank) against
+# one process's B = 16 (model batch 32 against 16: the same rounding
+# effect; 11 of 16 sessions' clicks parted), 3.380e-04 measured. Against
+# one process's B = 8, the ranks' own shapes, the run is held bit-identical
+SCALE_IOU_TOL = 5e-3
+# 17b: FSDP at world size 1 against the unsharded step, losses and the
+# checkpoint's leaves
+FSDP_TOL = 0.0
+# torch.distributed's collectives that the port and FSDP2 call (FSDP2's
+# names differ between torch versions; those this torch lacks are skipped)
+COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_gather_single",
+               "reduce_scatter_single")
+
+
+@contextlib.contextmanager
+def _collective_counts():
+    """{name: calls} of torch.distributed's collectives inside the block
+    (FSDP2 and the port call them through the module's attributes)."""
+    import torch.distributed as tdist
+    names = [n for n in COLLECTIVES if hasattr(tdist, n)]
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(tdist, n) for n in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(tdist, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, f in saved.items():
+            setattr(tdist, n, f)
+
+
+def _scale_batch(b: int, hw: int, n: int):
+    """b distinct samples in train_batch's layout (one image seed each)."""
+    parts = [train_batch(1, hw, n, seed=i) for i in range(b)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _box_seeds(cfg, num_iters: int, k: int):
+    """The first k generator seeds whose step draws a box round and a
+    click round."""
+    import torch
+    from pvpuformer_tpu_torch.engine.train_step import _train_noise
+    out = []
+    for seed in range(1 << 16):
+        types = _train_noise(cfg, torch.Generator().manual_seed(seed), 1, 1,
+                             1, num_iters)["prompt_types"]
+        if {0, 1} <= set(types):
+            out.append(seed)
+            if len(out) == k:
+                return out
+    raise AssertionError("too few seeds draw a box round and a click round")
+
+
+def _steps(trainer, batch, seeds, dev, mesh):
+    """SCALE_ITERS-round `train_step`s of a Trainer's model and optimizer,
+    one per seed: (global losses, host ms per step, wrapper counts,
+    collectives per step)."""
+    import torch
+    from pvpuformer_tpu_torch.engine.train_step import train_step
+    thr = torch.tensor([0.4, 0.375, 0.425], device=dev)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _collective_counts() as coll:
+        for seed in seeds:
+            t = time.perf_counter()
+            logs, _, _ = train_step(
+                trainer.model, trainer.tx, batch,
+                torch.Generator().manual_seed(seed), thr, cfg=trainer.cfg,
+                num_iters=SCALE_ITERS, device=dev, mesh=mesh)
+            losses.append(float(logs["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ms, _counts(), {k: v / len(seeds) for k, v in
+                                   coll.items() if v}
+
+
+def _scale_train(dev, mesh):
+    """17a's training: ViT-B@448 bf16 (seeded weights, Adam 5e-5), the
+    global batch SCALE_BATCH (this rank's rows under a mesh),
+    "replicated", SCALE_STEPS steps."""
+    import torch
+    from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
+    from pvpuformer_tpu_torch.engine.train_step import TrainConfig
+    from pvpuformer_tpu_torch.engine.trainer import Trainer
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+    from pvpuformer_tpu_torch.parallel.mesh import shard_batch
+
+    cfg = TrainConfig(model=vpu_base_config(dtype=torch.bfloat16))
+    model = init_vpu(cfg.model, torch.Generator().manual_seed(0), dev)
+    trainer = Trainer(model, cfg, make_optimizer(model, "adam", lr=5e-5),
+                      None, device=dev, mesh=mesh, param_mode="replicated")
+    hw = cfg.model.backbone.img_size[0]
+    batch = shard_batch(_scale_batch(SCALE_BATCH, hw,
+                                     cfg.model.num_max_points), mesh)
+    seeds = _box_seeds(cfg, SCALE_ITERS, SCALE_STEPS)
+    losses, ms, counts, coll = _steps(trainer, batch, seeds, dev, mesh)
+    return {"losses": losses, "step_ms": ms, "launches": counts,
+            "collectives_per_step": coll, "rows": len(batch["image"]),
+            "types": _train_noise_types(cfg, seeds),
+            "depth": cfg.model.backbone.depth}
+
+
+def _scale_eval(dev, mesh, b: int = SCALE_EVAL_B):
+    """17a's evaluation: ViT-B@448 bf16, SCALE_EVAL_B objects of Synthetic
+    448 x 448 x EVAL_CLICKS clicks in chunks of B = b (each split over the
+    ranks under a mesh)."""
+    import torch
+    from pvpuformer_tpu_torch.inference.batched import BatchedEvaluator
+    from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
+    from pvpuformer_tpu_torch.inference.predictor import PredictorConfig
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+
+    mcfg = vpu_base_config(dtype=torch.bfloat16)
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+    pcfg = PredictorConfig(model=mcfg, target_size=mcfg.crop_size,
+                           with_flip=True)
+    bev = BatchedEvaluator(model, pcfg, batch_size=b, device=dev, mesh=mesh)
+    ds = SyntheticDataset(n_samples=SCALE_EVAL_B, hw=(448, 448), seed=0)
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _collective_counts() as coll:
+        curves, elapsed, _ = bev.evaluate(ds, max_clicks=EVAL_CLICKS,
+                                          max_iou_thr=0.95)
+    torch.cuda.synchronize()
+    return {"curves": [c.tolist() for c in curves],
+            "clicks": [c.tolist() for c in bev.clicks], "elapsed": elapsed,
+            "launches": _counts(), "collectives": coll}
+
+
+def worker_scaleout(out_dir: str) -> None:
+    """One gloo rank of 17a on cuda:0 (chip_smoke starts two): training,
+    then the sharded evaluation; writes out_dir/rank<R>.json."""
+    from pvpuformer_tpu_torch.parallel import dist
+    from pvpuformer_tpu_torch.parallel.mesh import make_mesh
+    dev = dist.init("cuda:0", backend="gloo")
+    try:
+        mesh = make_mesh()
+        out = {"train": _scale_train(dev, mesh),
+               "eval": _scale_eval(dev, mesh)}
+        with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.shutdown()
+
+
+def worker_fsdp(out_dir: str) -> None:
+    """17b, the one rank of `torch.distributed.run --nproc-per-node 1`
+    under NCCL: the ViT-L recipe's Trainer (`build_trainer`) over the
+    synthetic raw source, unsharded ("replicated" on the one-rank mesh)
+    and in its default mode ("fsdp"), SCALE_STEPS steps each from the same
+    batches and draws; the FSDP Trainer's checkpoint against the unsharded
+    Trainer's state (what its `save` would write: `full_state_dict` and
+    the optimizer's `state_dict`); then one more FSDP step traced by
+    torch.profiler. Writes out_dir/fsdp.json."""
+    from pathlib import Path
+    import torch
+    from pvpuformer_tpu_torch.data import Loader, SyntheticTrainDataset
+    from pvpuformer_tpu_torch.parallel import dist
+    from pvpuformer_tpu_torch.parallel.mesh import (full_state_dict,
+                                                    is_sharded)
+    from pvpuformer_tpu_torch.utils.serialization import jax_name
+    from pvpuformer_tpu_torch.recipes.iSegNet import (
+        vpu_base448_cocolvis as base, vpu_large448_cocolvis as recipe)
+    from pvpuformer_tpu_torch.utils.exp import EasyCfg
+    from pvpuformer_tpu_torch.utils.serialization import load_checkpoint
+
+    dev = dist.init()
+    try:
+        sampler = base.points_sampler()
+        trainset = SyntheticTrainDataset(
+            n_samples=8, hw=RECIPE_HW, **{**base.train_kwargs(sampler),
+                                          "epoch_len": 8})
+        batches = list(itertools.islice(Loader(trainset, FSDP_BATCH,
+                                               num_workers=2),
+                                        SCALE_STEPS))
+        out = {}
+        for mode in ("replicated", "fsdp"):
+            d = Path(out_dir) / mode
+            cfg = EasyCfg(CHECKPOINTS_PATH=d, LOGS_PATH=d / "logs",
+                          device=str(dev), batch_size=FSDP_BATCH, workers=2,
+                          IMAGENET_PRETRAINED_MODELS={},
+                          param_mode="replicated" if mode == "replicated"
+                          else None)          # None: the recipe's default
+            t0 = time.perf_counter()
+            trainer = recipe.build_trainer(cfg, trainset, None)
+            t_build = time.perf_counter() - t0
+            seeds = _box_seeds(trainer.cfg, SCALE_ITERS, SCALE_STEPS)
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, counts, coll = [], [], None, None
+            for batch, seed in zip(batches, seeds):
+                lo, m, c, k = _steps(trainer, batch, [seed], dev,
+                                     trainer.mesh)
+                losses += lo
+                ms += m
+                counts = c if counts is None else \
+                    {n: counts[n] + c[n] for n in c}
+                coll = k
+            res = {"losses": losses, "step_ms": ms, "launches": counts,
+                   "collectives_per_step": coll,
+                   "sharded": is_sharded(trainer.model),
+                   "param_mode": trainer.param_mode,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "build_s": t_build}
+            if mode == "replicated":
+                ref = ({jax_name(k): v.float().cpu()
+                        for k, v in full_state_dict(trainer.model).items()},
+                       {k: torch.as_tensor(v).float().cpu()
+                        for k, v in trainer.tx.state_dict().items()})
+            else:
+                trainer.global_step = SCALE_STEPS
+                t0 = time.perf_counter()
+                trainer.save(0)
+                res["save_s"] = time.perf_counter() - t0
+                flat, _, step, extra = load_checkpoint(
+                    d / "last_checkpoint.npz", opt_state=True)
+                opt = extra["opt_state"]
+                out["ckpt"] = {
+                    "same_keys": set(flat) == set(ref[0])
+                    and set(opt) == set(ref[1]),
+                    "step": step,
+                    "param_err": max(float((torch.from_numpy(v).float()
+                                            - ref[0][k]).abs().max())
+                                     for k, v in flat.items()),
+                    "opt_err": max(float((v.float() - ref[1][k]).abs().max())
+                                   for k, v in opt.items()),
+                    "moments": sum(k.endswith("exp_avg") for k in opt)}
+                del ref
+                def step():
+                    return _steps(trainer, batches[0], seeds[:1], dev,
+                                  trainer.mesh)
+                _, names = _kernel_trace(step)
+                res["device"] = {key: sum(key in n for n in names)
+                                 for key in FSDP_KERNELS}
+            res["types"] = _train_noise_types(trainer.cfg, seeds)
+            res["depth"] = trainer.cfg.model.backbone.depth
+            out[mode] = res
+            del trainer
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, "fsdp.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.shutdown()
+
+
+# 17b's profiler trace: kernel-name substrings of rows 1, 2, 4, 5, 6, 7
+FSDP_KERNELS = ("attention_fwd", "attention_bwd_q", "attention_bwd_kv",
+                "minplus_envelope", "ln_fc1_gelu", "flood_kernel<1>",
+                "flood_kernel<2>")
+
+
+def _scale_launches(depth: int, types):
+    """Each wrapper's calls in steps of these prompt types (phase 9's
+    count): per round depth attention and LN+MLP forwards and backwards, a
+    min-plus call per click round after the first, a CC call each per box
+    round."""
+    rounds = sum(map(len, types))
+    boxes = sum(t.count(1) for t in types)
+    return {"fused_attention": depth * rounds,
+            "fused_attention_bwd": depth * rounds,
+            "fused_ln_mlp": depth * rounds, "fused_ln_mlp_bwd": depth * rounds,
+            "flash_attention": 0, "minplus_rows": rounds - len(types),
+            "cc_labels": boxes, "component_max": boxes}
+
+
+def _train_noise_types(cfg, seeds):
+    import torch
+    from pvpuformer_tpu_torch.engine.train_step import _train_noise
+    return [_train_noise(cfg, torch.Generator().manual_seed(s), 1, 1, 1,
+                         SCALE_ITERS)["prompt_types"] for s in seeds]
+
+
+def _children(cmds, envs, what: str):
+    """Start the commands together from the repo root, wait at most
+    CHILD_TIMEOUT s for each (then kill them all); raise unless all exit
+    0. Returns their stdouts."""
+    procs = [subprocess.Popen(c, cwd=ROOT, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c, e in zip(cmds, envs)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=CHILD_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"{what} exited {p.returncode}:\n"
+                                     f"{out[-3000:]}\n{err[-5000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun(args, what: str):
+    """`python -m torch.distributed.run --nproc-per-node 1 <args>` on a
+    free port of 127.0.0.1: its stdout and seconds."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t = time.perf_counter()
+    out = _children([[sys.executable, "-m", "torch.distributed.run",
+                      "--nproc-per-node=1", "--master-addr=127.0.0.1",
+                      f"--master-port={_free_port()}", *args]], [env],
+                    what)[0]
+    return out, time.perf_counter() - t
+
+
+def _noise_cost(card: str) -> None:
+    """The host's draw of one 3-round step's noise (`_train_noise`, ViT-B@448)
+    at the batches a rank of W = 1, 2, 8 draws for a local batch of 4 and
+    32: a rank draws the global batch's and keeps its rows."""
+    import torch
+    from pvpuformer_tpu_torch.engine.train_step import TrainConfig, _train_noise
+    from pvpuformer_tpu_torch.models.vpu import vpu_base_config
+    cfg = TrainConfig(model=vpu_base_config(dtype=torch.bfloat16))
+    hw = cfg.model.backbone.img_size[0]
+    ms = {}
+    for b in (4, 8, 32, 64, 256):
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _train_noise(cfg, torch.Generator().manual_seed(0), b, hw, hw,
+                         SCALE_ITERS)
+            t.append((time.perf_counter() - t0) * 1e3)
+        ms[b] = round(float(np.median(t)), 1)
+    _log(f"  host noise draw of a {SCALE_ITERS}-round step at global batch "
+         f"B (ms, median of 3; a rank draws the global B): {ms} (host of "
+         f"{card})")
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_scaleout(dev, card: str):
+    """Phase 17 (see the module docstring). Returns the wrapper counts of
+    its distributed runs: both gloo ranks' steps and evaluation, the FSDP
+    steps."""
+    import tempfile
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = {}
+    base_env = dict(os.environ, PYTHONPATH=ROOT, WORLD_SIZE="2",
+                    LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(_free_port()))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        _children([[sys.executable, os.path.abspath(__file__), "--worker",
+                    "scaleout", tmp]] * 2,
+                  [dict(base_env, RANK=str(r)) for r in range(2)],
+                  "the 17a gloo ranks")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        secs = time.perf_counter() - t
+    one = _scale_train(dev, None)
+    r0, r1 = (r["train"] for r in ranks)
+    dloss = max(abs(a - b) for a, b in zip(r0["losses"], one["losses"]))
+    want = _scale_launches(one["depth"], one["types"])
+    ok = (r0["losses"] == r1["losses"] and dloss <= SCALE_LOSS_TOL
+          and np.isfinite(r0["losses"]).all()
+          and r0["rows"] == r1["rows"] == SCALE_BATCH // 2
+          and all(r["launches"][k] == v for r in (r0, r1)
+                  for k, v in want.items()))
+    _log(f"  17a 2 gloo ranks on cuda:0, replicated, ViT-B@448 bf16, global "
+         f"batch {SCALE_BATCH} ({r0['rows']} rows a rank), {SCALE_STEPS} "
+         f"steps x {SCALE_ITERS} rounds: losses rank 0 {r0['losses']}, rank "
+         f"1 {r1['losses']}; one process {one['losses']}; max |dloss| "
+         f"{dloss:.3e} (tol {SCALE_LOSS_TOL}); collectives per step "
+         f"{r0['collectives_per_step']}; ms per step W=2 "
+         f"{[round(x, 1) for x in r0['step_ms']]} (gloo through the host, "
+         f"two ranks sharing the card: no speed claim), W=1 "
+         f"{[round(x, 1) for x in one['step_ms']]}; launches per rank "
+         f"{ {k: v for k, v in r0['launches'].items() if v} } (want {want}); "
+         f"both ranks' processes {secs:.1f} s ({card}) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("17a: the 2-rank steps disagree with each other, "
+                             "with one process, or in their launches")
+    _add(launches, r0["launches"])
+    _add(launches, r1["launches"])
+    _noise_cost(card)
+
+    e0, e1 = (r["eval"] for r in ranks)
+    single = _scale_eval(dev, None)
+    half = _scale_eval(dev, None, SCALE_EVAL_B // 2)
+    for e in (e0, e1, single, half):
+        _curves_ok([np.asarray(c) for c in e["curves"]], SCALE_EVAL_B,
+                   EVAL_CLICKS)
+    same = sum(np.array_equal(a, b) for a, b in zip(e0["clicks"],
+                                                    single["clicks"]))
+
+    def diou(e):
+        return max(float(np.abs(np.asarray(a[:min(len(a), len(b))])
+                                - np.asarray(b[:min(len(a), len(b))])).max())
+                   for a, b in zip(e0["curves"], e["curves"]))
+    exact = e0["curves"] == half["curves"] and e0["clicks"] == half["clicks"]
+    ok = (e0["curves"] == e1["curves"] and e0["clicks"] == e1["clicks"]
+          and exact and diou(single) <= SCALE_IOU_TOL)
+    _log(f"  17a BatchedEvaluator(mesh=) B = {SCALE_EVAL_B} over 2 gloo "
+         f"ranks (8 sessions a rank) x {EVAL_CLICKS} clicks: against one "
+         f"process's B = {SCALE_EVAL_B // 2} (each rank's shapes) curves "
+         f"and clicks bit-identical {exact}; against one process's B = "
+         f"{SCALE_EVAL_B}: sessions with equal clicks {same} of "
+         f"{SCALE_EVAL_B}, max |dIoU| {diou(single):.3e} (tol "
+         f"{SCALE_IOU_TOL}); {e0['elapsed']:.2f} s sharded vs "
+         f"{single['elapsed']:.2f} s one process; collectives "
+         f"{e0['collectives']}; launches per rank "
+         f"{ {k: v for k, v in e0['launches'].items() if v} } ({card}) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("17a: the sharded evaluation disagrees with "
+                             "one process's")
+    _add(launches, e0["launches"])
+    _add(launches, e1["launches"])
+    del one, single, half
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, secs = _torchrun([os.path.abspath(__file__), "--worker", "fsdp",
+                             tmp], "the 17b FSDP rank")
+        with open(os.path.join(tmp, "fsdp.json")) as f:
+            fs = json.load(f)
+    a, b, ck = fs["replicated"], fs["fsdp"], fs["ckpt"]
+    boxes = sum(t.count(1) for t in b["types"][:1])
+    want = _scale_launches(b["depth"], b["types"])
+    dloss = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    seen = b["device"]
+    ok = (b["sharded"] and not a["sharded"] and b["param_mode"] == "fsdp"
+          and dloss <= FSDP_TOL and ck["same_keys"]
+          and ck["param_err"] <= FSDP_TOL and ck["opt_err"] <= FSDP_TOL
+          and ck["step"] == SCALE_STEPS
+          and all(b["launches"][k] == v for k, v in want.items())
+          and all(seen[k] > 0 for k in FSDP_KERNELS[:5])
+          and (boxes == 0 or all(seen[k] > 0 for k in FSDP_KERNELS[5:])))
+    _log(f"  17b FSDP at world size 1 under NCCL (torch.distributed.run "
+         f"--nproc-per-node 1), the ViT-L recipe's build_trainer in its "
+         f"default mode ({b['param_mode']}), batch {FSDP_BATCH}, "
+         f"{SCALE_STEPS} steps x {SCALE_ITERS} rounds: losses fsdp "
+         f"{b['losses']}, unsharded {a['losses']}, max |dloss| {dloss:.3e} "
+         f"(tol {FSDP_TOL}); the FSDP checkpoint against the unsharded "
+         f"Trainer's state: max |dparam| "
+         f"{ck['param_err']:.3e}, max |dmoment| {ck['opt_err']:.3e} "
+         f"({ck['moments']} exp_avg leaves; tol {FSDP_TOL}); ms per step "
+         f"fsdp {[round(x, 1) for x in b['step_ms']]}, unsharded "
+         f"{[round(x, 1) for x in a['step_ms']]}; build_trainer s fsdp "
+         f"{b['build_s']:.1f}, unsharded {a['build_s']:.1f}; the FSDP "
+         f"checkpoint written in {b['save_s']:.1f} s; peak GiB fsdp "
+         f"{b['peak_gib']:.2f}, unsharded {a['peak_gib']:.2f}; collectives "
+         f"per step fsdp {b['collectives_per_step']}; wrapper launches "
+         f"{ {k: v for k, v in b['launches'].items() if v} } (want {want}); "
+         f"one more FSDP step traced (types {b['types'][:1]}): device "
+         f"launches {seen}; the process {secs:.1f} s ({card}) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("17b: the FSDP step disagrees with the "
+                             "unsharded one, or its kernels did not launch")
+    _add(launches, b["launches"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, secs = _torchrun(
+            ["-m", "pvpuformer_tpu_torch.evaluate", "--random-weights",
+             "--datasets", "Synthetic", "--n-clicks", "5", "--batched",
+             str(SCALE_EVAL_B), "--eval-mesh", "1", "--logs-path", tmp],
+            "evaluate --eval-mesh 1")
+    table = [ln for ln in out.splitlines() if ln.startswith("|")]
+    _log(f"  17c python -m torch.distributed.run --nproc-per-node 1 -m "
+         f"pvpuformer_tpu_torch.evaluate --random-weights --datasets "
+         f"Synthetic --n-clicks 5 --batched {SCALE_EVAL_B} --eval-mesh 1: rc "
+         f"0 in {secs:.1f} s")
+    for ln in table:
+        _log(f"    {ln}")
+    if not any("| Synthetic |" in ln for ln in table):
+        raise AssertionError("evaluate --eval-mesh 1 printed no NoC table")
+    _log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs a GPU",
               file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if args[:1] == ["--worker"]:          # a rank that phase 17 starts
+        {"scaleout": worker_scaleout, "fsdp": worker_fsdp}[args[1]](args[2])
+        return 0
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/16] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/17] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -3528,7 +4070,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/16] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/17] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler, then "
              "PlainVit and the zoo families")
@@ -3539,50 +4081,50 @@ def main() -> int:
                           "card": smi}))
         return 0
 
-    _log("[3/16] kernels vs plain versions")
+    _log("[3/17] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/16] model parity, tiny config f32")
+    _log("[4/17] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/16] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/17] main path: ViT-B@448 bf16 click sessions")
     launches, model = phase_main(dev, smi)
-    _log("[6/16] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/17] prompt parity, tiny config f32, four prompt variants")
     phase_prompt_parity(dev)
-    _log("[7/16] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/17] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = phase_prompts(dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     graphs.clear()                  # the captured rounds' memory
     torch.cuda.empty_cache()
-    _log("[8/16] training parity, tiny config f32")
+    _log("[8/17] training parity, tiny config f32")
     phase_train_parity(dev)
-    _log("[9/16] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/17] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = phase_train(dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/16] evaluation parity, tiny config f32: sequential and "
+    _log("[10/17] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
     phase_eval_parity(dev)
-    _log("[11/16] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _log("[11/17] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     phase_batched(dev, smi)
     torch.cuda.empty_cache()
     phase_graph_cache(dev, smi)
-    _log("[12/16] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _log("[12/17] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     phase_presets(dev, smi)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[13/16] the training entry point: the tiny recipe and the "
+    _log("[13/17] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
          "shipped recipe through the data pipeline")
     phase_entry(dev)
     phase_recipe(dev, smi)
     torch.cuda.empty_cache()
-    _log("[14/16] serving parity, tiny config f32: controller, int8 and BRS "
+    _log("[14/17] serving parity, tiny config f32: controller, int8 and BRS "
          "sessions, CUDA vs the CPU")
     phase_serving_parity(dev)
-    _log("[15/16] serving at ViT-B@448 bf16: the HTTP service, the demo, "
+    _log("[15/17] serving at ViT-B@448 bf16: the HTTP service, the demo, "
          "user clicks (bf16 and int8), f-BRS-B and RGB-BRS")
     serving = phase_serving(dev, smi)
     for name in ("fused_attention", "fused_attention_bwd", "minplus_rows",
@@ -3590,11 +4132,20 @@ def main() -> int:
         launches[name] += serving.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[16/16] model families: PlainVit ViT-B@448 and the zoo at their "
+    _log("[16/17] model families: PlainVit ViT-B@448 and the zoo at their "
          "default configs, bf16; tiny f32 parity")
     families = phase_families(dev, smi)
     for name in launches:
         launches[name] += families.get(name, 0)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    _log("[17/17] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
+         "training and sharded batched evaluation), FSDP at world size 1 "
+         "under NCCL (the ViT-L recipe), evaluate --eval-mesh 1")
+    scale = phase_scaleout(dev, smi)
+    for name in launches:
+        launches[name] += scale.get(name, 0)
+    _log(f"whole script: {time.perf_counter() - t_script:.1f} s")
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",

@@ -19,6 +19,9 @@ optimizer with one param group per distinct (lr scale, weight decay):
     between.
 A parameter that got no gradient (one the forward does not use) gets a zero
 gradient, as in JAX, so weight decay and the moments still apply to it.
+Under FSDP the parameters and the moments are `DTensor` shards: the state
+is written and read as whole tensors, so a checkpoint made on W ranks loads
+on one process and the other way round.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import re
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel.mesh import full_tensor, placed_like
 
 
 def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float,
@@ -78,7 +83,9 @@ class TrainOptimizer:
     """A torch optimizer with the learning-rate schedule and gradient
     accumulation of the JAX chain; each param group carries its lr factor
     as "lr_scale". Call `step()` once per training step, after the step's
-    gradients are in `.grad`; it clears them."""
+    gradients are in `.grad`; it clears them. A parameter replaced after
+    construction (FSDP's `fully_shard` does so) is swapped in by
+    `rebind`."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], every: int = 1):
@@ -89,6 +96,15 @@ class TrainOptimizer:
         self.mini_step = 0            # gradients accumulated since the last
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self._acc = None
+
+    def rebind(self, swap: Dict[int, torch.Tensor]) -> None:
+        """Swap parameters: `swap` maps id(old parameter) to its new object
+        (the optimizer must hold no state yet)."""
+        if self.optimizer.state or self._acc is not None:
+            raise RuntimeError("rebind an optimizer before its first step")
+        for g in self.optimizer.param_groups:
+            g["params"] = [swap.get(id(p), p) for p in g["params"]]
+        self.params = [swap.get(id(p), p) for p in self.params]
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -124,16 +140,18 @@ class TrainOptimizer:
         return True
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        """The state as a flat {name: tensor} (checkpoint leaves)."""
+        """The state as a flat {name: whole tensor} (checkpoint leaves; under
+        FSDP a collective: call it on every rank)."""
         out = {"updates": torch.tensor(self.updates),
                "mini_step": torch.tensor(self.mini_step)}
         index = {id(p): i for i, p in enumerate(self.params)}
         for p, st in self.optimizer.state.items():
             for k, v in st.items():
-                out[f"state/{index[id(p)]}/{k}"] = torch.as_tensor(v)
+                out[f"state/{index[id(p)]}/{k}"] = full_tensor(
+                    torch.as_tensor(v))
         if self._acc is not None:
             for i, a in enumerate(self._acc):
-                out[f"acc/{i}"] = a
+                out[f"acc/{i}"] = full_tensor(a)
         return out
 
     def load_state_dict(self, flat: Dict[str, torch.Tensor]) -> None:
@@ -147,11 +165,11 @@ class TrainOptimizer:
                 v = torch.as_tensor(v)
                 self.optimizer.state[p][parts[2]] = (
                     v.clone() if parts[2] == "step"
-                    else v.to(p.device, p.dtype).clone())
+                    else placed_like(v, p).clone())
         accs = [k for k in flat if k.startswith("acc/")]
         if accs:
-            self._acc = [torch.as_tensor(flat[f"acc/{i}"]).to(p.device)
-                         .clone() for i, p in enumerate(self.params)]
+            self._acc = [placed_like(flat[f"acc/{i}"], p).clone()
+                         for i, p in enumerate(self.params)]
 
 
 def make_optimizer(model: torch.nn.Module, opt_name: str = "adam",

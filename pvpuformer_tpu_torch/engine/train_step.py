@@ -28,6 +28,19 @@ jax.checkpoint per round) is read for the header but has no meaning here.
 Every random draw of a step is an argument, made by `_train_noise` from a
 CPU `torch.Generator` and moved to the card with a pinned non-blocking copy:
 torch cannot reproduce `jax.random`, so a test hands the port JAX's draws.
+
+Data parallelism (`mesh`, parallel/mesh.py): each rank holds its rows of
+the global batch. The step draws the global batch's noise (the same draws
+on every rank: the same generator seed) and keeps this rank's rows, so W
+ranks run what one process runs on the global batch; the prompt types and
+num_iters are global, so every rank runs the same rounds and collectives.
+The gradients are reduced once per step, after the last round's backward:
+"replicated" sums them over the ranks and divides by W in one all-reduce
+(`reduce_gradients`), which equals JAX's psum of the global-batch mean;
+under FSDP only the last round's backward reduce-scatters (the earlier
+rounds accumulate unsharded), and the one all-reduce takes the 0-d leaves
+FSDP leaves replicated. The logs, IoUs and valid flags come back for
+the global batch, through one more all-reduce.
 """
 from __future__ import annotations
 
@@ -39,7 +52,9 @@ import torch
 
 from .. import nn
 from ..inference.predictor import BOX_OFFSET, _gumbel, _to_device
-from ..models.vpu import VPUConfig, VPUModel, vpu_forward
+from ..models.vpu import VPUConfig, VPUModel
+from ..parallel.mesh import (data_group, data_rank, data_size,
+                             reduce_gradients, set_grad_sync)
 from . import losses as L
 from .metrics import iou_at_thresholds
 from .optimizer import TrainOptimizer
@@ -91,6 +106,26 @@ def _train_noise(cfg: TrainConfig, gen: torch.Generator, b: int, h: int,
                             - neg).int()
     noise["drop_u"] = torch.rand((max(num_iters - 1, 0), b), generator=gen)
     return noise
+
+
+# the batch axis of each draw of `_train_noise`
+_NOISE_BATCH_AXIS = {"gumbel": 1, "init_gumbel": 0, "box_offsets": 1,
+                     "drop_u": 1}
+
+
+def _step_noise(cfg: TrainConfig, gen: torch.Generator, b: int, h: int,
+                w: int, num_iters: int, mesh) -> Dict[str, Any]:
+    """This rank's draws: `_train_noise` at the global batch (b rows per
+    rank), rows [rank * b, (rank + 1) * b) of each; the prompt types are
+    global. The host's draw grows with the number of ranks."""
+    n = data_size(mesh)
+    noise = _train_noise(cfg, gen, b * n, h, w, num_iters)
+    if n == 1:
+        return noise
+    lo = data_rank(mesh) * b
+    return {k: v if k == "prompt_types"
+            else v.narrow(_NOISE_BATCH_AXIS[k], lo, b)
+            for k, v in noise.items()}
 
 
 def _noise_on(noise: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -178,13 +213,15 @@ def _iterloss_loop(p: VPUModel, cfg: TrainConfig,
                                  update_points=False)[1]
     for k in range(num_iters):
         net_input = torch.cat([image, prev.to(image.dtype)], -1)
-        out = vpu_forward(p, cfg.model, net_input, points, boxes.float(),
-                          scr, prompt_type)
+        out = p(net_input, points, boxes.float(), scr, prompt_type,
+                cfg=cfg.model)
         round_total = _round_losses(cfg, out, gt, ed_mask,
                                     cfg.iterloss_weights[k], logs, k)
         instances = out["instances"].detach()
         del out
         if with_grads:
+            # FSDP reduce-scatters after the step's last backward only
+            set_grad_sync(p, k == num_iters - 1)
             round_total.backward()          # frees this round's graph
             round_total = round_total.detach()
         total = total + round_total
@@ -222,13 +259,13 @@ def _itermask_forward(p: VPUModel, cfg: TrainConfig, image, gt, points,
     for i in range(num_iters):
         with torch.no_grad():
             net_input = torch.cat([image, prev.to(image.dtype)], -1)
-            out = vpu_forward(p, cfg.model, net_input, points)
+            out = p(net_input, points, cfg=cfg.model)
             prev = torch.sigmoid(out["instances"].float())
             points, _ = next_clicks(prev[..., 0], gt[..., 0], points,
                                     noise["gumbel"][i],
                                     pred_thresh=cfg.pred_thresh)
     net_input = torch.cat([image, prev.to(image.dtype)], -1)
-    out = vpu_forward(p, cfg.model, net_input, points)
+    out = p(net_input, points, cfg=cfg.model)
     nfl = L.normalized_focal_loss(out["instances"], gt, alpha=cfg.nfl_alpha,
                                   gamma=cfg.nfl_gamma).mean()
     dice = L.dice_loss(out["instances"], gt, use_sigmoid=True,
@@ -263,40 +300,68 @@ def iterloss_forward(p: VPUModel, cfg: TrainConfig,
     return _iterloss_loop(p, cfg, batch, noise, num_iters, with_grads=False)
 
 
+def _global_results(logs: Dict[str, torch.Tensor], ious: torch.Tensor,
+                    valid: torch.Tensor, mesh):
+    """This rank's logs (means over its rows), metric IoUs (3, b) and valid
+    flags (b,) -> the global batch's: the logs' mean over the ranks, the
+    (3, W b) IoUs and (W b,) flags in rank order. One all-reduce of one
+    buffer in which each rank wrote its share (zeros elsewhere)."""
+    n = data_size(mesh)
+    if n == 1:
+        return logs, ious, valid
+    keys = list(logs)
+    b = valid.shape[0]
+    lo = data_rank(mesh) * b
+    buf = torch.zeros(len(keys) + 4 * n * b, device=ious.device)
+    buf[:len(keys)] = torch.stack([logs[k].float() for k in keys]) / n
+    rows = buf[len(keys):].view(4, n * b)
+    rows[:3, lo:lo + b] = ious
+    rows[3, lo:lo + b] = valid.float()
+    torch.distributed.all_reduce(buf, group=data_group(mesh))
+    return ({k: buf[i] for i, k in enumerate(keys)}, rows[:3],
+            rows[3] > 0.5)
+
+
 def train_step(p: VPUModel, tx: TrainOptimizer, batch: Dict[str, Any],
                gen: torch.Generator, metric_thresholds: torch.Tensor, *,
-               cfg: TrainConfig, num_iters: int, device=None):
+               cfg: TrainConfig, num_iters: int, device=None, mesh=None):
     """One optimization step, in place on `p` and `tx`. `gen` (a CPU
-    `torch.Generator`) makes the step's random draws; `device` None means
-    the card (and raises without one). Returns (logs, metric ious (3, B),
-    metric valid (B,)), all on the device: nothing here syncs the host."""
+    `torch.Generator`, seeded alike on every rank) makes the step's random
+    draws; `device` None means the card (and raises without one). With a
+    `mesh` (parallel/mesh.make_mesh), `batch` holds this rank's rows of the
+    global batch and `p` is placed by `shard_params`. Returns (logs, metric
+    ious (3, B), metric valid (B,)) of the global batch, all on the device:
+    nothing here syncs the host."""
     dev = nn.resolve_device(device)
     batch = _place(batch, dev)
     b, h, w, _ = batch["image"].shape
-    noise = _noise_on(_train_noise(cfg, gen, b, h, w, num_iters), dev)
+    noise = _noise_on(_step_noise(cfg, gen, b, h, w, num_iters, mesh), dev)
     loss, aux = _iterloss_loop(p, cfg, batch, noise, num_iters,
                                with_grads=cfg.use_iterloss)
     if not cfg.use_iterloss:
+        set_grad_sync(p, True)
         loss.backward()
+    reduce_gradients(tx.params, mesh)
     tx.step()
     ious, valid = iou_at_thresholds(aux["final_instances"],
                                     batch["instances"].float(),
                                     metric_thresholds)
-    return aux["logs"], ious, valid
+    return _global_results(aux["logs"], ious, valid, mesh)
 
 
 @torch.no_grad()
 def eval_step(p: VPUModel, batch: Dict[str, Any], gen: torch.Generator,
               metric_thresholds: torch.Tensor, *, cfg: TrainConfig,
-              num_iters: int, device=None):
+              num_iters: int, device=None, mesh=None):
     """Validation: the same rounds, no gradient, no update
-    (trainer.py:266-298). Returns (logs, ious, valid)."""
+    (trainer.py:266-298). Returns (logs, ious, valid) of the global batch;
+    `mesh` as in `train_step`."""
     dev = nn.resolve_device(device)
     batch = _place(batch, dev)
     b, h, w, _ = batch["image"].shape
-    noise = _noise_on(_train_noise(cfg, gen, b, h, w, num_iters), dev)
+    noise = _noise_on(_step_noise(cfg, gen, b, h, w, num_iters, mesh), dev)
     _, aux = iterloss_forward(p, cfg, batch, noise, num_iters)
     ious, valid = iou_at_thresholds(aux["final_instances"],
                                     batch["instances"].float(),
                                     metric_thresholds)
-    return aux["logs"], ious, valid
+    return _global_results(aux["logs"], ious, valid, mesh)

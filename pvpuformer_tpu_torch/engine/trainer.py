@@ -20,8 +20,19 @@ around `train_step`:
     port's own encoder (the JAX Trainer writes a JPEG through PIL).
 
 The model and the optimizer are trained in place. The loader is any
-iterable of numpy batch dicts with `set_epoch(epoch)`. There is no mesh:
-one device, no data parallelism yet.
+iterable of numpy batch dicts with `set_epoch(epoch)`.
+
+Data parallelism (JAX trainer.py:75-111,130-160,274-291): with a `mesh`
+(parallel/mesh.make_mesh, one rank per process under torch.distributed)
+the loader yields this rank's rows of each global batch (`Loader`'s
+process_index / process_count), the parameters are placed by
+`shard_params(model, mesh, param_mode)` ("replicated" or "fsdp"; the
+optimizer is rebound to FSDP's parameters), and `train_step` returns the
+global batch's logs and metric inputs, so the AdaptiveIoU state is the
+same on every rank and equals one process's. Rank 0 alone writes
+checkpoints, TensorBoard and panels; a checkpoint holds the whole
+parameters and Adam moments, as one process writes them, and `resume`
+places them on the mesh again.
 """
 from __future__ import annotations
 
@@ -35,7 +46,10 @@ import numpy as np
 import torch
 
 from .. import nn
-from ..models.vpu import VPUModel, vpu_forward
+from ..models.vpu import VPUModel
+from ..parallel import dist
+from ..parallel.mesh import (data_size, full_state_dict, is_sharded,
+                             load_full_state_dict, shard_params)
 from ..utils.serialization import (load_checkpoint, params_from_numpy,
                                    save_checkpoint)
 from .metrics import AdaptiveIoU, adaptive_iou_step, state_thresholds
@@ -88,12 +102,27 @@ class Trainer:
                  vis_dir: Optional[str] = None,
                  image_dump_interval: int = 0,
                  tb_dump_period: int = 25,
-                 log_every: int = 25, seed: int = 0, device=None):
+                 log_every: int = 25, seed: int = 0, device=None,
+                 mesh=None, param_mode: str = "replicated"):
         """`device` None means the card (and raises without one); the model
         moves there, its parameters keep their identity (so `tx`, built by
-        `make_optimizer(model)`, still holds them)."""
+        `make_optimizer(model)`, still holds them) unless `param_mode`
+        "fsdp" shards them over `mesh`, and `tx` is then rebound to the
+        sharded parameters. Without a mesh every mode is one device's."""
         self.device = nn.resolve_device(device)
+        self.mesh = mesh
+        self.param_mode = param_mode
+        pcount = getattr(train_loader, "pcount", None)
+        if pcount is not None and pcount != data_size(mesh):
+            raise ValueError(f"the loader shards batches over {pcount} "
+                             f"processes, the mesh has {data_size(mesh)} "
+                             f"ranks")
         self.model = model.to(self.device)
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        shard_params(self.model, mesh, param_mode)
+        if is_sharded(self.model):
+            now = dict(self.model.named_parameters())
+            tx.rebind({i: now[n] for i, n in names.items()})
         self.cfg = cfg
         self.tx = tx
         self.train_loader = train_loader
@@ -109,7 +138,7 @@ class Trainer:
         self.global_step = 0
         self.epoch = 0
         self._tb = None
-        if tb_dir:
+        if tb_dir and dist.is_master():
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = _AvgWriter(SummaryWriter(tb_dir),
@@ -138,7 +167,7 @@ class Trainer:
             thr = state_thresholds(mstate, thresh_step=m.thresh_step)
             logs, ious, valid = train_step(
                 self.model, self.tx, batch, gen, thr, cfg=self.cfg,
-                num_iters=num_iters, device=self.device)
+                num_iters=num_iters, device=self.device, mesh=self.mesh)
             mstate = adaptive_iou_step(
                 mstate, ious, valid, thresh_step=m.thresh_step,
                 thresh_beta=m.thresh_beta, iou_beta=m.iou_beta)
@@ -177,7 +206,7 @@ class Trainer:
             thr = state_thresholds(mstate, thresh_step=m.thresh_step)
             logs, ious, valid = eval_step(
                 self.model, batch, gen, thr, cfg=self.cfg,
-                num_iters=num_iters, device=self.device)
+                num_iters=num_iters, device=self.device, mesh=self.mesh)
             mstate = adaptive_iou_step(
                 mstate, ious, valid, thresh_step=m.thresh_step,
                 thresh_beta=m.thresh_beta, iou_beta=m.iou_beta)
@@ -206,8 +235,8 @@ class Trainer:
         dev = self.device
         image = torch.as_tensor(np.asarray(batch["image"][:1]), device=dev)
         net_in = torch.cat([image, torch.zeros_like(image[..., :1])], -1)
-        out = vpu_forward(self.model, self.cfg.model, net_in,
-                          torch.as_tensor(pts, device=dev))
+        out = self.model(net_in, torch.as_tensor(pts, device=dev),
+                         cfg=self.cfg.model)
         pred = torch.sigmoid(out["instances"][0, :, :, 0].float()).cpu().numpy()
 
         image_u8 = np.clip(img * 255, 0, 255).astype(np.uint8)
@@ -232,29 +261,38 @@ class Trainer:
         return np.concatenate([row1, row2], axis=0)
 
     def _dump_visualization(self, batch) -> None:
-        if self.vis_dir is None:
+        """Rank 0's first sample; under FSDP every rank runs the forward
+        (its parameter gathers are collectives) and rank 0 writes."""
+        if self.vis_dir is None or not (dist.is_master()
+                                        or is_sharded(self.model)):
             return
         from ..utils.vis import write_png
-        self.vis_dir.mkdir(parents=True, exist_ok=True)
-        write_png(self.vis_dir / f"{self.global_step:06d}.png",
-                  self.dump_panel(batch))
+        panel = self.dump_panel(batch)
+        if dist.is_master():
+            self.vis_dir.mkdir(parents=True, exist_ok=True)
+            write_png(self.vis_dir / f"{self.global_step:06d}.png", panel)
 
     def save(self, epoch: int, name: Optional[str] = None) -> None:
+        """Rank 0 writes the whole parameters and optimizer state (gathered
+        from every rank under FSDP, so every rank calls this)."""
         if self.checkpoint_dir is None:
             return
         path = self.checkpoint_dir / (name or f"{epoch:03d}.npz")
-        state = self.model.state_dict()
+        state = full_state_dict(self.model)
         opt = self.tx.state_dict()
-        for p in (path, self.checkpoint_dir / "last_checkpoint.npz"):
-            save_checkpoint(p, state, config=self.cfg, opt_state=opt,
-                            step=self.global_step, extra={"epoch": epoch})
-        logger.info("saved checkpoint %s", path)
+        if dist.is_master():
+            for p in (path, self.checkpoint_dir / "last_checkpoint.npz"):
+                save_checkpoint(p, state, config=self.cfg, opt_state=opt,
+                                step=self.global_step,
+                                extra={"epoch": epoch})
+            logger.info("saved checkpoint %s", path)
+        dist.synchronize()
 
     def resume(self, path) -> int:
-        """Load parameters, optimizer state and counters in place; returns
-        the epoch to continue from."""
+        """Load parameters, optimizer state and counters in place (each
+        rank its shards); returns the epoch to continue from."""
         flat, _, step, extra = load_checkpoint(path, opt_state=True)
-        self.model.load_state_dict(params_from_numpy(flat))
+        load_full_state_dict(self.model, params_from_numpy(flat))
         if extra["opt_state"]:
             self.tx.load_state_dict(extra["opt_state"])
         self.global_step = step

@@ -7,6 +7,9 @@ itself the reference's scripts/evaluate_vpumodel.py):
         [--print-ious] [--save-ious] [--prompt-mode 0|1|2] [--int8] \
         [--device cpu]
 
+    python -m torch.distributed.run --nproc-per-node D \
+        -m pvpuformer_tpu_torch.evaluate --batched B --eval-mesh D ...
+
 The mode is NoBRS, f-BRS-A / B / C, RGB-BRS or DistMap-BRS
 (inference/brs.py); --int8 (NoBRS only) runs the int8 PTQ model.
 
@@ -19,14 +22,18 @@ weights. A checkpoint in the JAX package's format carries its config, of
 any registered family (models/registry.py);
 --random-weights builds a seeded ViT-B / L / H for pipeline runs. It runs
 on the card unless --device cpu is given. The table and the pickles are
-those of the JAX CLI. Not ported yet: SAM, --eval-mesh and --vis-preds;
-each exits with an error.
+those of the JAX CLI. --eval-mesh D shares each batch of B sessions
+between the D ranks of a process group that torch.distributed.run starts
+(NCCL on cuda:LOCAL_RANK, gloo with --device cpu; B must divide by D);
+rank 0 prints and saves. Not ported yet: SAM and --vis-preds; each exits
+with an error.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import glob
+import os
 import pickle
 from pathlib import Path
 
@@ -71,6 +78,10 @@ def parse_args(argv=None):
     p.add_argument("--batched", type=int, default=0, metavar="B",
                    help="evaluate B sessions per batch (NoBRS clicks only; "
                         "0 = one session at a time)")
+    p.add_argument("--eval-mesh", type=int, default=0, metavar="D",
+                   help="with --batched B: share each batch between the D "
+                        "ranks of torch.distributed.run (B must divide by "
+                        "D); 0 = one process")
     p.add_argument("--int8", action="store_true",
                    help="int8 PTQ of every linear (per-channel weights, "
                         "dynamic per-row activations); NoBRS only")
@@ -90,13 +101,13 @@ def parse_args(argv=None):
                    help="merge the IoU pickles matching GLOB and reprint the "
                         "per-dataset NoC tables; no model is loaded")
     not_ported = p.add_argument_group("not ported yet")
-    for flag in ("--sam-checkpoint", "--sam-model-type", "--eval-mesh"):
+    for flag in ("--sam-checkpoint", "--sam-model-type"):
         not_ported.add_argument(flag, default=None)
     for flag in ("--sam-multimask", "--sam-feedback-mask", "--vis-preds"):
         not_ported.add_argument(flag, action="store_true")
     args = p.parse_args(argv)
     for name in ("sam_checkpoint", "sam_model_type", "sam_multimask",
-                 "sam_feedback_mask", "eval_mesh", "vis_preds"):
+                 "sam_feedback_mask", "vis_preds"):
         if getattr(args, name):
             p.error(f"--{name.replace('_', '-')} is not ported yet")
     nobrs = args.mode.lower() == "nobrs"
@@ -108,6 +119,15 @@ def parse_args(argv=None):
                 "int8 rounding has no useful gradient)")
     if args.batched > 0 and not nobrs:
         p.error("--batched runs NoBRS only")
+    if args.eval_mesh:
+        world = int(os.environ.get("WORLD_SIZE", 0))
+        if args.batched <= 0 or args.batched % args.eval_mesh:
+            p.error("--eval-mesh D needs --batched B with B divisible by D")
+        if world != args.eval_mesh:
+            p.error(f"--eval-mesh {args.eval_mesh} needs a process group of "
+                    f"{args.eval_mesh} ranks: run under python -m "
+                    f"torch.distributed.run --nproc-per-node "
+                    f"{args.eval_mesh} (WORLD_SIZE is {world or 'unset'})")
     return args
 
 
@@ -206,6 +226,26 @@ def main(argv=None) -> None:
     if args.merge_shards:
         merge_shards(args.merge_shards)
         return
+    from .nn import resolve_device
+    from .parallel import dist
+    from .parallel.mesh import make_mesh
+
+    mesh = None
+    if args.eval_mesh:
+        device = dist.init(args.device)
+        mesh = make_mesh(args.eval_mesh)
+    else:
+        device = resolve_device(args.device)
+    try:
+        _evaluate(args, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.shutdown()
+
+
+def _evaluate(args, device, mesh) -> None:
+    """Every dataset of --datasets: its NoC table (and pickles), printed
+    and written by rank 0 alone under --eval-mesh."""
     from .inference.batched import BatchedEvaluator
     from .inference.datasets import get_dataset
     from .inference.evaluation import (compute_noc_metric, evaluate_dataset,
@@ -214,10 +254,10 @@ def main(argv=None) -> None:
     from .inference.brs import get_predictor
     from .inference.predictor import PredictorConfig
     from .models import registry
-    from .nn import resolve_device
+    from .parallel import dist
     from .utils.exp import load_config_file
 
-    device = resolve_device(args.device)
+    master = dist.is_master()
     model, mcfg = build_model(args)
     logs_dir = Path(args.logs_path)
     logs_dir.mkdir(parents=True, exist_ok=True)
@@ -250,12 +290,13 @@ def main(argv=None) -> None:
                                skip_clicks=-1, prompt_mode=args.prompt_mode)
         if args.batched > 0:
             bev = BatchedEvaluator(ds_model, pcfg, batch_size=args.batched,
-                                   device=device, int8=args.int8)
+                                   device=device, int8=args.int8, mesh=mesh)
             all_ious, elapsed, stats = bev.evaluate(
                 dataset, max_clicks=args.n_clicks,
                 max_iou_thr=args.target_iou, min_clicks=args.min_n_clicks)
-            print(f"throughput: {stats['objects_per_sec']:.3f} obj/s, "
-                  f"{stats['clicks_per_sec']:.2f} clicks/s")
+            if master:
+                print(f"throughput: {stats['objects_per_sec']:.3f} obj/s, "
+                      f"{stats['clicks_per_sec']:.2f} clicks/s")
         else:
             predictor = get_predictor(ds_model, pcfg, brs_mode=args.mode,
                                       int8=args.int8, device=device)
@@ -265,6 +306,8 @@ def main(argv=None) -> None:
                 min_clicks=args.min_n_clicks, max_clicks=args.n_clicks,
                 progress=True)
 
+        if not master:
+            continue
         mean_spc, mean_spi = get_time_metrics(all_ious, elapsed)
         noc, _, over_max = compute_noc_metric(
             all_ious, iou_thrs=[0.8, 0.85, 0.9, 0.95],

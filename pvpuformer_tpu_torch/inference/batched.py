@@ -11,6 +11,12 @@ padded to the batch size with copies of its last session, whose results
 are dropped. A chunk's rounds run through `graphs.click_rounds`: replayed
 from a captured round on the card, the eager `batched_click_scan`
 elsewhere.
+
+With a `mesh` (parallel/mesh.make_mesh, one rank per process), each rank
+runs B / D sessions of every chunk (rank p rows [p B / D, (p + 1) B / D),
+as JAX shards a chunk over its data axis) on its replica of the model, and
+one all-reduce per chunk brings every session's IoU curve and clicks to
+every rank, in dataset order. B must divide by D.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from torch import nn as tnn
 
 from ..models import registry
 from ..nn import inference_model, resolve_device
+from ..parallel.dist import gather_rows
+from ..parallel.mesh import data_group, data_size, shard_batch, shard_params
 from . import graphs
 from .predictor import (NOISE_SEED, PredictorConfig, SessionState,
                         init_session, stack_states)
@@ -49,15 +57,23 @@ class BatchedEvaluator:
     """Evaluate a dataset B sessions at a time. The model is moved to
     `device` (None: the card; device="cpu" for the CPU) and cast once to
     the config's compute dtype, in place, as `Predictor` does; `int8` runs
-    a quantized copy (`nn.inference_model`)."""
+    a quantized copy (`nn.inference_model`). With a `mesh` the ranks share
+    each chunk (rank 0's parameters are broadcast once); after `evaluate`,
+    `clicks` holds each session's final (2N, 3) clicks in dataset order."""
 
     def __init__(self, model: tnn.Module, cfg: PredictorConfig,
-                 batch_size: int = 8, device=None, int8: bool = False):
+                 batch_size: int = 8, device=None, int8: bool = False,
+                 mesh=None):
+        if batch_size % data_size(mesh):
+            raise ValueError(f"batch size {batch_size} over "
+                             f"{data_size(mesh)} ranks: B must divide by D")
         self.cfg = resolve_batched_cfg(cfg)
         self.device = resolve_device(device)
-        self.model = inference_model(model, cfg.model.dtype, self.device,
-                                     int8)
+        self.model = shard_params(
+            inference_model(model, cfg.model.dtype, self.device, int8), mesh)
         self.batch_size = batch_size
+        self.mesh = mesh
+        self.clicks: List[np.ndarray] = []
 
     def _canvas(self, h: int, w: int) -> Tuple[int, int]:
         b = self.cfg.canvas_bucket
@@ -83,19 +99,27 @@ class BatchedEvaluator:
                 order += 1
 
         curves: List = [None] * order
+        self.clicks = [None] * order
         start = time.time()
         total_clicks = 0
         for items in groups.values():
             for lo in range(0, len(items), self.batch_size):
                 chunk = items[lo:lo + self.batch_size]
                 pad = self.batch_size - len(chunk)
-                states = stack_states([st for _, st in chunk]
-                                      + [chunk[-1][1]] * pad)
-                _, ious = graphs.click_rounds(
+                states = shard_batch(stack_states(
+                    [st for _, st in chunk] + [chunk[-1][1]] * pad),
+                    self.mesh)
+                final, ious = graphs.click_rounds(
                     self.model, self.cfg, states, max_clicks,
                     torch.Generator().manual_seed(NOISE_SEED))
-                ious = ious.cpu().numpy()
-                for (idx, _), curve in zip(chunk, ious):
+                pts = final.points
+                rows = gather_rows(torch.cat(
+                    [ious.float(), pts.reshape(len(pts), -1)], 1),
+                    group=data_group(self.mesh)).cpu().numpy()
+                ious = rows[:, :max_clicks]
+                pts = rows[:, max_clicks:].reshape(len(rows), -1, 3)
+                for (idx, _), curve, p in zip(chunk, ious, pts):
+                    self.clicks[idx] = p
                     over = np.nonzero(curve[min_clicks - 1:] >= max_iou_thr)[0]
                     k = (over[0] + min_clicks) if len(over) else max_clicks
                     curves[idx] = curve[:k].astype(np.float32)

@@ -82,6 +82,12 @@ class Block(tnn.Module):
         self.norm2 = nn.Norm(dim)
         self.mlp = nn.Mlp(dim, int(dim * mlp_ratio), init="xavier", g=g)
 
+    def forward(self, x: torch.Tensor, num_heads: int, eps: float,
+                attn_impl: str = "auto", ln_f32: bool = True) -> torch.Tensor:
+        """`block_forward` (the definition) through the module's call, where
+        FSDP gathers a sharded block's parameters."""
+        return block_forward(self, x, num_heads, eps, attn_impl, ln_f32)
+
 
 class ViT(tnn.Module):
     def __init__(self, cfg: ViTConfig, g: Optional[torch.Generator] = None):
@@ -162,6 +168,6 @@ def vit_backbone_forward(p: ViT, cfg: ViTConfig, x_patches: torch.Tensor,
             x, patched = _patchify(x, cfg), True
         elif not i % nbpg and patched:
             x, patched = _unpatchify(x, cfg), False
-        x = block_forward(p.blocks[i - 1], x, cfg.num_heads, cfg.ln_eps,
-                          cfg.attn_impl, cfg.ln_f32)
+        x = p.blocks[i - 1](x, cfg.num_heads, cfg.ln_eps, cfg.attn_impl,
+                            cfg.ln_f32)
     return _unpatchify(x, cfg) if patched else x

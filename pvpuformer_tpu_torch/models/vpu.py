@@ -134,10 +134,15 @@ class VPUModel(tnn.Module):
                 boxes: Optional[torch.Tensor] = None,
                 scribbles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 prompt_type: int = 0,
-                ppue_points: Optional[torch.Tensor] = None
+                ppue_points: Optional[torch.Tensor] = None,
+                cfg: Optional[VPUConfig] = None
                 ) -> Dict[str, Optional[torch.Tensor]]:
-        return vpu_forward(self, self.cfg, image, points, boxes, scribbles,
-                           prompt_type, ppue_points)
+        """`vpu_forward` (the definition) through the module's call, where
+        FSDP gathers the root's sharded parameters; `cfg` (default: the
+        model's) may change the compute dtype, as the training config's
+        does."""
+        return vpu_forward(self, self.cfg if cfg is None else cfg, image,
+                           points, boxes, scribbles, prompt_type, ppue_points)
 
 
 def init_vpu(cfg: VPUConfig, generator: torch.Generator,

@@ -13,7 +13,9 @@ checkpoints every 5 epochs then every epoch from 190.
 
 `build_trainer(cfg, trainset, valset)` builds the Trainer from any datasets;
 `main(cfg)` builds the CocoLvis datasets (config.yml's LVIS_v1_PATH) and
-runs. One card: no mesh and no parameter sharding yet.
+runs. Under torch.distributed.run each rank loads its rows of the global
+batch (--batch-size) and the Trainer places the parameters on the
+("data", "model") mesh by --param-mode (default here "replicated").
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from pvpuformer_tpu_torch.engine.optimizer import (make_optimizer,
 from pvpuformer_tpu_torch.engine.train_step import TrainConfig
 from pvpuformer_tpu_torch.engine.trainer import Trainer
 from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+from pvpuformer_tpu_torch.parallel import dist, make_mesh
 from pvpuformer_tpu_torch.train import run
 from pvpuformer_tpu_torch.utils.torch_ingest import (load_mae_pretrained,
                                                      load_vit_state)
@@ -76,17 +79,24 @@ def val_kwargs(sampler: MultiPointSampler) -> dict:
                 points_sampler=sampler, epoch_len=VAL_EPOCH_LEN)
 
 
+def loader_shard() -> dict:
+    """This process's share of every global batch (`Loader` arguments)."""
+    return dict(process_index=dist.get_rank(),
+                process_count=dist.get_world_size())
+
+
 def build_trainer(cfg, trainset, valset, init=init_model,
-                  layerwise_decay: bool = False) -> Trainer:
+                  layerwise_decay: bool = False,
+                  param_mode: str = "replicated") -> Trainer:
     """The recipe's Trainer over `trainset` / `valset` (cfg: the experiment
-    config with train.py's flags). `layerwise_decay` is the default of
-    --layerwise-decay."""
+    config with train.py's flags). `layerwise_decay` and `param_mode` are
+    the defaults of --layerwise-decay and --param-mode."""
     model, mcfg = init(cfg)
     batch_size = cfg.batch_size if cfg.get("batch_size", -1) > 0 else 32
     train_loader = Loader(trainset, batch_size,
-                          num_workers=cfg.get("workers", 4))
+                          num_workers=cfg.get("workers", 4), **loader_shard())
     val_loader = Loader(valset, batch_size, shuffle=False,
-                        num_workers=cfg.get("workers", 4))
+                        num_workers=cfg.get("workers", 4), **loader_shard())
 
     tcfg = TrainConfig(model=mcfg, max_num_next_clicks=3,
                        iterloss_weights=(1.0, 2.0, 3.0),
@@ -103,7 +113,10 @@ def build_trainer(cfg, trainset, valset, init=init_model,
                    checkpoint_dir=cfg.CHECKPOINTS_PATH,
                    checkpoint_interval=[(0, 5), (190, 1)],
                    metrics=[AdaptiveIoU()], tb_dir=str(cfg.LOGS_PATH),
-                   device=cfg.get("device"))
+                   device=cfg.get("device"),
+                   mesh=make_mesh(model_parallel=cfg.get("model_parallel",
+                                                         1)),
+                   param_mode=cfg.get("param_mode") or param_mode)
 
 
 def main(cfg):

@@ -9,8 +9,9 @@ backbones (the acknowledged ancestry, reference `README.md:128`): the base
 recipe's losses, sampler, augmentations, schedule and checkpoints, the
 MAE_LARGE backbone, and layer-wise lr decay as the recipe's default
 (BEiT 0.75^depth over 24 blocks; train.py's --layerwise-decay flag, absent,
-reads as off, as with the JAX package's train.py). The JAX recipe's FSDP
-parameter sharding waits for the scale-out slice: one card.
+reads as off, as with the JAX package's train.py) and FSDP parameter
+sharding as the default --param-mode, as in the JAX recipe (with one
+process and no process group every mode is one device's).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ init_model = partial(base.init_model, make_config=vpu_large_config,
 
 def build_trainer(cfg, trainset, valset):
     return base.build_trainer(cfg, trainset, valset, init=init_model,
-                              layerwise_decay=True)
+                              layerwise_decay=True, param_mode="fsdp")
 
 
 def main(cfg):

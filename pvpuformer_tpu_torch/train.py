@@ -4,21 +4,36 @@
     python -m pvpuformer_tpu_torch.train \
         pvpuformer_tpu_torch/recipes/iSegNet/vpu_base448_cocolvis.py \
         --batch-size 32 --exp-name run1 [--resume-exp 003] [--debug] \
-        [--device cpu]
+        [--device cpu] [--param-mode replicated|fsdp]
+
+    python -m torch.distributed.run --nproc-per-node 8 \
+        -m pvpuformer_tpu_torch.train <recipe> --param-mode fsdp
 
 The recipe defines MODEL_NAME, init_model(cfg) and main(cfg); the model,
 data and schedule live there. Paths come from the config.yml cascade
 (utils/exp.py); the experiment goes to
 <EXPS_PATH>/<recipe dir>/<recipe>/NNN[_name]/ with checkpoints/, vis/, logs/
 and a copy of the recipe. It trains on the card unless --device cpu is
-given. One card: the JAX CLI's --model-parallel and --param-mode wait for
-the scale-out slice, and --platform is --device here.
+given (--platform in the JAX CLI).
+
+Under torch.distributed.run each process is one rank: the process group
+starts first (parallel/dist.init: NCCL on cuda:LOCAL_RANK, gloo with
+--device cpu), rank 0 makes the experiment and the others join it, and
+--batch-size is the global batch, each rank loading its rows. --param-mode
+places the parameters ("replicated": full copies, one gradient all-reduce
+per step; "fsdp": FSDP2 shards; default: the recipe's); the tensor-parallel
+modes and --model-parallel above 1 refuse (not ported, see ROADMAP.md).
 """
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
+import torch.distributed as tdist
+
+from .parallel import dist
+from .parallel.mesh import TP_ITEM, TP_MODES
 from .utils.exp import init_experiment, load_module
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,14 +61,24 @@ def parse_args(argv=None):
     p.add_argument("--upsample", default="x1", choices=["x1", "x2", "x4"])
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor-parallel ways (only 1: not ported)")
+    p.add_argument("--param-mode", default=None,
+                   choices=["replicated", "fsdp", *TP_MODES],
+                   help="parameter placement over the ranks (default: the "
+                        "recipe's; the tp modes are not ported)")
     p.add_argument("--accumulate-grad", type=int, default=1,
                    help="apply the optimizer every K steps, averaging "
                         "gradients in between (reference train.py "
                         "--accumulate-grad / trainer.py:188-202)")
     p.add_argument("--debug", action="store_true", help="1 epoch smoke run")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the card)")
-    return p.parse_args(argv)
+                   help="torch device (default: the card; cuda:LOCAL_RANK "
+                        "under torch.distributed.run)")
+    args = p.parse_args(argv)
+    if args.model_parallel != 1 or args.param_mode in TP_MODES:
+        p.error(TP_ITEM)
+    return args
 
 
 def run(cfg, trainer, num_epochs: int) -> None:
@@ -76,13 +101,35 @@ def run(cfg, trainer, num_epochs: int) -> None:
                 start_epoch=start, validation=False)
 
 
+def experiment(args):
+    """The experiment config: rank 0 makes it (or finds --resume-exp's),
+    the other ranks of a process group join the one rank 0 names."""
+    name = [None]
+    if dist.is_master():
+        cfg = init_experiment(args.model_path, exp_suffix=args.exp_name,
+                              resume_exp=args.resume_exp, repo_root=ROOT)
+        name = [cfg.EXP_PATH.name]
+    if dist.get_world_size() > 1:
+        tdist.broadcast_object_list(name, src=0)
+    if dist.is_master():
+        return cfg
+    return init_experiment(args.model_path, resume_exp=name[0],
+                           repo_root=ROOT, rank=dist.get_rank())
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    cfg = init_experiment(args.model_path, exp_suffix=args.exp_name,
-                          resume_exp=args.resume_exp, repo_root=ROOT)
-    for k, v in vars(args).items():
-        setattr(cfg, k, v)
-    load_module(args.model_path).main(cfg)
+    launched = "WORLD_SIZE" in os.environ       # torch.distributed.run
+    if launched:
+        args.device = str(dist.init(args.device))
+    try:
+        cfg = experiment(args)
+        for k, v in vars(args).items():
+            setattr(cfg, k, v)
+        load_module(args.model_path).main(cfg)
+    finally:
+        if launched:
+            dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -182,9 +182,11 @@ def load_config(model_path, repo_root=None) -> EasyCfg:
 
 def init_experiment(model_path, exps_path=None, exp_suffix: str = "",
                     resume_exp: Optional[str] = None,
-                    repo_root=None) -> EasyCfg:
+                    repo_root=None, rank: int = 0) -> EasyCfg:
     """exp.py:16-67: returns cfg with EXP_PATH / CHECKPOINTS_PATH / VIS_PATH
-    / LOGS_PATH set and the recipe snapshotted."""
+    / LOGS_PATH set and the recipe snapshotted. A rank other than 0 of a
+    process group joins the experiment rank 0 made (`resume_exp` names it)
+    and logs to a file of its own."""
     model_path = Path(model_path).resolve()
     cfg = load_config(model_path, repo_root)
     if exps_path is None:
@@ -220,7 +222,8 @@ def init_experiment(model_path, exps_path=None, exp_suffix: str = "",
         shutil.copy(model_path, exp_path / model_path.name)
 
     stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
-    add_logging(cfg.LOGS_PATH, prefix=f"train_{stamp}_")
+    add_logging(cfg.LOGS_PATH, prefix=f"train_{stamp}_"
+                + (f"rank{rank}_" if rank else ""))
     return cfg
 
 

@@ -355,7 +355,7 @@ def test_cli_runs_on_the_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("argv,message", [
     (["f-BRS-B", "--int8"], "NoBRS only"),
-    (["--eval-mesh", "4"], "not ported yet"),
+    (["--sam-model-type", "vit_h"], "not ported yet"),
     (["--vis-preds"], "not ported yet"),
     (["--batched", "2", "f-BRS-B"], "NoBRS only"),
     (["SAM", "--sam-checkpoint", "sam.pth"], "not ported yet")])

@@ -50,6 +50,8 @@ import pvpuformer_tpu_torch.models.zoo.swin
 import pvpuformer_tpu_torch.models.zoo.hrformer
 import pvpuformer_tpu_torch.models.zoo.swin_unet
 import pvpuformer_tpu_torch.inference.tiled
+import pvpuformer_tpu_torch.parallel.dist
+import pvpuformer_tpu_torch.parallel.mesh
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton',
                                     'tkinter', 'demo', 'demo_widgets'))

@@ -200,12 +200,15 @@ def _record_recipe(mods, main, monkeypatch, cfg, pkg):
 def test_recipe_wiring_matches_jax(name, monkeypatch, tmp_path):
     """The same model config, datasets (sampler, augmentations, object
     filter, epoch length, stuff_prob), loaders, TrainConfig, optimizer
-    arguments, checkpoint schedule and epochs as the JAX recipe, with
-    train.py's flags as they come by default."""
+    arguments, checkpoint schedule, parameter mode and epochs as the JAX
+    recipe, with train.py's flags as they come by default (--param-mode
+    left out, so that each recipe's own default shows). One process has no
+    process group: the port's mesh is None, JAX's one-device mesh."""
     flags = vars(ttrain.parse_args([str(TINY)]))
     cfg = texp.EasyCfg(LVIS_v1_PATH="/nonexistent", CHECKPOINTS_PATH=tmp_path,
                        LOGS_PATH=tmp_path, IMAGENET_PRETRAINED_MODELS={},
-                       **{k: v for k, v in flags.items() if k != "device"})
+                       **{k: v for k, v in flags.items()
+                          if k not in ("device", "param_mode")})
     jmod = jexp.load_module(REPO / "models" / "iSegNet" / f"{name}.py")
     jseen = _record_recipe([jmod], jmod.main, monkeypatch, cfg, jdata)
     from pvpuformer_tpu_torch.recipes.iSegNet import vpu_base448_cocolvis
@@ -222,9 +225,14 @@ def test_recipe_wiring_matches_jax(name, monkeypatch, tmp_path):
         tt.args[1]
     for i in range(3, len(jt.args)):                # the loaders
         assert _loader_record(tt.args[i]) == _loader_record(jt.args[i])
-    assert set(jt.kw) - set(tt.kw) <= {"mesh", "param_mode"}
-    assert set(tt.kw) - set(jt.kw) == {"device"}
-    for k in set(jt.kw) & set(tt.kw) - {"metrics"}:
+    assert set(jt.kw) <= set(tt.kw)
+    # the JAX tiny recipe leaves mesh and param_mode at the Trainer's
+    # defaults
+    assert set(tt.kw) - set(jt.kw) == \
+        {"device"} | ({"mesh", "param_mode"} - set(jt.kw))
+    assert tt.kw["mesh"] is None
+    assert tt.kw["param_mode"] == jt.kw.get("param_mode", "replicated")
+    for k in set(jt.kw) & set(tt.kw) - {"metrics", "mesh"}:
         assert tt.kw[k] == jt.kw[k], k
     assert [(type(m).__name__, m.thresh_step, m.thresh_beta, m.iou_beta)
             for m in tt.kw["metrics"]] == \
@@ -242,8 +250,9 @@ def test_recipes_take_train_flags():
 
 
 @pytest.mark.parametrize("flag", [["--model-parallel", "2"],
-                                  ["--param-mode", "fsdp"],
-                                  ["--platform", "cpu"], ["--random-split"]])
+                                  ["--param-mode", "tp"],
+                                  ["--platform", "cpu"], ["--random-split"],
+                                  ["--param-mode", "tp+fsdp"]])
 def test_train_refuses_flags_of_later_slices(flag):
     with pytest.raises(SystemExit) as e:
         ttrain.parse_args([str(TINY)] + flag)
