@@ -13,7 +13,11 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      PlainVit's tiled_forward over 12 tiles (attention (48, 196, 12, 64)
      and (12, 784, 12, 64), LN+MLP over 9408 rows), and the
      ViT-L / ViT-H click shapes (head dims 64 and 80, LN+MLP at 1024 ->
-     4096 and 1280 -> 5120) (and the CC
+     4096 and 1280 -> 5120), the evaluation CLI's protocol shapes
+     (--eval-ritm's crop 400: attention (2, 625, 12, 64), no windows,
+     LN+MLP over 1250 rows; --eval-mode fixed448,672: attention
+     (12, 196, 12, 64) and (2, 1176, 12, 64), LN+MLP over 2352 rows)
+     (and the CC
      kernels, bit-exact and bit-identical on repeat at iters 1, 2, 8 and 16,
      at every mask of CC_MASKS: a snake and a spiral that need more than 8
      rounds, 50176 components, ragged, empty, full, 1 x W and H x 1 masks,
@@ -186,9 +190,28 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      --nproc-per-node 1 -m pvpuformer_tpu_torch.evaluate --batched 16
      --eval-mesh 1` exits 0 with its NoC table; ms per step at W = 1 / 2,
      the collectives per step, and the phase's and the script's seconds;
+ 18. the evaluation CLI's protocol flags, ViT-B@448 bf16, seeded random
+     weights: (a) `python -m pvpuformer_tpu_torch.evaluate --random-weights
+     NoBRS --cf-n=0 --acf --iou-analysis --save-ious --print-ious` (the
+     repo launcher's flags) as a process, its pickled curves bit-identical
+     to an in-process `evaluate_dataset` at target 1.01 on the same
+     weights; (e) the same with --profile: the same curves, its p50 / p90 /
+     p99 and memory line; (f, g) --vis-preds --clicks-limit 5 --model-name
+     X: one PNG per sample of click rows x the panel's height, the header,
+     the first 5 clicks equal to (a)'s; in process, sessions of 20 clicks
+     through `Predictor` of (b) the CFR cascade (--cf-n 2 --cf-click 3
+     --acf: three forwards a round, every round), (c) --eval-ritm (crop
+     400, skip_clicks=1) and (d) --eval-mode fixed448,672, each with the
+     launch checks, replayed rounds against the eager `click_scan`
+     (bit-identical) and every round against the plain twins patched into
+     `models.vit` on the card (the same click, probabilities within
+     TILED_BF16_TOL); p50s at --cf-n 0 and --cf-n 2 without --acf; a
+     5-click box session with the cascade (its launch checks, one host
+     prompt draw a click); one {"phase18": ...} JSON line with the
+     numbers and phase 3's checks at the protocol shapes;
 then one JSON line of kernel summaries (launches: the wrapper counts
-summed over the paths of phases 5, 7, 9, 15, 16 and 17), the card's name
-and power limit, and, last, {"ok": true, "device": ...}.
+summed over the paths of phases 5, 7, 9, 15, 16, 17 and 18), the card's
+name and power limit, and, last, {"ok": true, "device": ...}.
 
 LAUNCH CHECKS. A kernel wrapper counts its calls where it launches: in an
 eager round and in the capture of a round, which records the launch into
@@ -217,10 +240,11 @@ took about 570 s on an NVIDIA H100 80GB HBM3 at 700 W (phase 5's two
 bench processes about 65 s of it, phase 16 about 70 s; the launch
 checks' second runs under the profiler, each window opened by 0.25 s of
 guard kernels, and the graph-cache workload add the most beyond the
-phases themselves), and phase 17 about 165 s more (its FSDP process
-about 95 s, most of it building ViT-L twice on the host), of the
-script's 1200 s limit; the last lines print the phase's and the whole
-script's seconds.
+phases themselves), phase 17 about 165 s more (its FSDP process
+about 95 s, most of it building ViT-L twice on the host) and phase 18
+about 126 s (its three CLI processes about 14 s each), of the script's
+1200 s limit; the last lines print the phases' and the whole script's
+seconds.
 """
 from __future__ import annotations
 
@@ -354,6 +378,11 @@ def _compare(name, kernel_fn, plain_fn, atol, rtol, exact=False):
     return err, ms, plain_ms
 
 
+# phase 3's checks at the shapes of the evaluation CLI's protocols, which
+# phase 18 prints on its JSON line
+PROTOCOL_SHAPES = {}
+
+
 def phase_kernels(dev):
     """Phase 3: every kernel vs its plain version at the main-path shapes."""
     import torch
@@ -418,7 +447,16 @@ def phase_kernels(dev):
             ("ViT-L window", (8, 196, 16, 64), (torch.bfloat16,), both[:1]),
             ("ViT-L global", (2, 784, 16, 64), (torch.bfloat16,), both[:1]),
             ("ViT-H window", (8, 256, 16, 80), (torch.bfloat16,), both[:1]),
-            ("ViT-H global", (2, 1024, 16, 80), (torch.bfloat16,), both[:1])):
+            ("ViT-H global", (2, 1024, 16, 80), (torch.bfloat16,), both[:1]),
+            # the evaluation CLI's protocols (phase 18): --eval-ritm's 400
+            # crop (grid 25 x 25, no windows: every block global), and
+            # --eval-mode fixed448,672 (grid 28 x 42, windows 2 x 3)
+            ("RITM-400 global", (2, 625, 12, 64), (torch.bfloat16,),
+             both[:1]),
+            ("fixed 448x672 window", (12, 196, 12, 64), (torch.bfloat16,),
+             both[:1]),
+            ("fixed 448x672 global", (2, 1176, 12, 64), (torch.bfloat16,),
+             both[:1])):
         for dt in dts:
             q, k, v = (torch.randn(shape, generator=g).to(dev, dt)
                        for _ in range(3))
@@ -438,8 +476,15 @@ def phase_kernels(dev):
                 call = lambda: kern(q, k, v)  # noqa: E731
                 r = _compare(f"{name} {label} {tuple(shape)} {dt}", call,
                              lambda: plain(q, k, v, 1.0 / 8.0), *tol)
+                kern_dev = _device_ms(call) if bf16 else None
                 record(name, r, label == "global" and bf16, bound, lib_ms,
-                       (_device_ms(call) if bf16 else None, lib_dev))
+                       (kern_dev, lib_dev))
+                if label.startswith(("RITM", "fixed")):
+                    PROTOCOL_SHAPES[f"{name} {tuple(shape)}"] = {
+                        "ms": r[1], "plain_ms": r[2], "device_ms": kern_dev,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "max_abs_err": r[0], "sdpa_ms": lib_ms,
+                        "sdpa_device_ms": lib_dev}
     # the attention backward at the training shapes, batch 32 (window
     # blocks 32 x 4 windows x 12 heads, global blocks 32 x 12 heads), bf16,
     # at the click path's flip batch (8 window blocks, 2 global), which
@@ -531,9 +576,11 @@ def phase_kernels(dev):
     # also its time's yardstick
     mlp_extra = {}
     # (D, hidden, rows): ViT-B's click, batched B = 8, PlainVit's 12 tiles
-    # (phase 16b) and training rows, ViT-L's and ViT-H's click rows (2 x
-    # 784, 2 x 1024 tokens)
-    for d, hid, rows in ((768, 3072, (1568, 16 * 784, 12 * 784, 32 * 784)),
+    # (phase 16b) and training rows, the evaluation CLI's --eval-ritm (2 x
+    # 625 tokens) and --eval-mode fixed448,672 (2 x 1176) rows (phase 18),
+    # ViT-L's and ViT-H's click rows (2 x 784, 2 x 1024 tokens)
+    for d, hid, rows in ((768, 3072, (1568, 16 * 784, 12 * 784, 32 * 784,
+                                      2 * 625, 2 * 1176)),
                          (1024, 4096, (1568,)), (1280, 5120, (2048,))):
         ln, mlp = nn.Norm(d), nn.Mlp(d, hid)
         with torch.no_grad():
@@ -560,12 +607,17 @@ def phase_kernels(dev):
             chain = lambda: ln_mlp_chain(x, ln, mlp)  # noqa: E731
             dev_ms, chain_ms = _device_ms(call), _device_ms(chain)
             mlp_extra[m, d] = (dev_ms, chain_ms)
-            record("fused_ln_mlp", r, (m, d) == (1568, 768),
-                   _bound(4.0 * m * d * hid, PEAK_BF16,
-                          2.0 * (2 * m * d + 2 * d * hid + hid + d)
-                          + 4.0 * 2 * d),
+            bound = _bound(4.0 * m * d * hid, PEAK_BF16,
+                           2.0 * (2 * m * d + 2 * d * hid + hid + d)
+                           + 4.0 * 2 * d)
+            record("fused_ln_mlp", r, (m, d) == (1568, 768), bound,
                    device=(dev_ms, chain_ms), yardstick="cuBLAS chain",
                    extra={"chain_device_ms": chain_ms})
+            if m in (2 * 625, 2 * 1176):
+                PROTOCOL_SHAPES[f"fused_ln_mlp ({m},{d})"] = {
+                    "ms": r[1], "plain_ms": r[2], "device_ms": dev_ms,
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    "max_abs_err": r[0], "chain_device_ms": chain_ms}
             del x
     d = 768
     m = 32 * 784
@@ -3230,15 +3282,11 @@ def _family_sessions(pred, image, gt, clicks: int):
     return sessions, session
 
 
-def _tiled_vs_plain(model, mcfg, img, pts, got, card: str):
-    """Phase 16b: `tiled_forward` again with the attention and LN+MLP
-    kernels' plain twins (the functions the CPU runs) in place of their
-    wrappers, on the same device: the kernels at the 12 tiles' batch shapes
-    held against their plain versions end to end. `got` is the kernels'
-    result; returns the largest difference, absolute and relative to the
-    largest logit."""
-    import torch
-    from pvpuformer_tpu_torch.inference.tiled import tiled_forward
+@contextlib.contextmanager
+def _plain_twins():
+    """The attention and LN+MLP kernels' plain twins (the functions the CPU
+    runs) in place of their wrappers in `models.vit`, on the same
+    device."""
     from pvpuformer_tpu_torch.models import vit
     from pvpuformer_tpu_torch.ops.fused_attention import \
         fused_attention_plain
@@ -3254,9 +3302,23 @@ def _tiled_vs_plain(model, mcfg, img, pts, got, card: str):
             x.reshape(-1, d), ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b,
             mlp.fc2.w, mlp.fc2.b, eps).reshape(x.shape)
 
-    _zero_counts()
     with _patched(vit, "fused_attention", lambda _: plain_attention), \
             _patched(vit, "fused_ln_mlp", lambda _: plain_ln_mlp):
+        yield
+
+
+def _tiled_vs_plain(model, mcfg, img, pts, got, card: str):
+    """Phase 16b: `tiled_forward` again with the attention and LN+MLP
+    kernels' plain twins (the functions the CPU runs) in place of their
+    wrappers, on the same device: the kernels at the 12 tiles' batch shapes
+    held against their plain versions end to end. `got` is the kernels'
+    result; returns the largest difference, absolute and relative to the
+    largest logit."""
+    import torch
+    from pvpuformer_tpu_torch.inference.tiled import tiled_forward
+
+    _zero_counts()
+    with _plain_twins():
         plain = tiled_forward(model, mcfg, img, pts, mcfg.backbone.img_size)
     torch.cuda.synchronize()
     _round_counts([_counts()], {}, "tiled forward, plain twins")
@@ -4042,6 +4104,302 @@ def phase_scaleout(dev, card: str):
     return launches
 
 
+EVAL_CLI = "pvpuformer_tpu_torch.evaluate"
+CLI_LIMIT = 2             # phase 18: Synthetic samples per CLI process
+CLI_VIS_CLICKS = 7        # phase 18f: clicks of the --vis-preds process
+CLI_CLICKS_LIMIT = 5      # phase 18g: --clicks-limit
+LAUNCHER = ["NoBRS", "--cf-n=0", "--acf", "--iou-analysis", "--save-ious",
+            "--print-ious"]            # run_evaluate_vpu.sh's flags
+# --cf-n 2 --cf-click 3 --acf: three forwards a click (every one of them
+# runs, the cascade selects with torch.where), the first 3 clicks refined
+CASCADE = {"cascade_step": 3, "cascade_adaptive": True, "cascade_clicks": 3}
+RITM_CROP = (400, 400)    # phase 18c: --eval-ritm (skip_clicks=1)
+FIXED_CROP = (448, 672)   # phase 18d: --eval-mode fixed448,672
+PROTOCOL_HW = (480, 640)  # phase 18b-d: the sessions' image
+
+
+def _rounds_vs_plain(pred, state0, clicks: int, label: str, card: str):
+    """Each round of the kernels' session, from its input state, again with
+    the attention and LN+MLP plain twins patched into `models.vit`
+    (`_plain_twins`) on the card and the same prompt draws: the same
+    oracle click, and the probabilities within TILED_BF16_TOL (phase 16b's
+    tolerance, of max(1, the largest probability)). Rounds are compared
+    one by one so that a bf16 difference in one round cannot move the next
+    round's click. Returns the largest |dprob| and |dIoU|."""
+    import torch
+    from pvpuformer_tpu_torch.inference.predictor import (NOISE_SEED,
+                                                         click_step)
+    gen = torch.Generator().manual_seed(NOISE_SEED)
+    st, worst, iou_err = state0, 0.0, 0.0
+    with torch.no_grad():
+        for k in range(clicks):
+            twin = torch.Generator()
+            twin.set_state(gen.get_state())
+            nxt, iou = click_step(pred.model, pred.cfg, st, gen)
+            _zero_counts()
+            with _plain_twins():
+                pnxt, piou = click_step(pred.model, pred.cfg, st, twin)
+            torch.cuda.synchronize()
+            counts = _counts()
+            if counts["fused_attention"] or counts["fused_ln_mlp"]:
+                raise AssertionError(f"{label}: a kernel ran under the "
+                                     f"plain twins: {counts}")
+            if not torch.equal(nxt.points, pnxt.points):
+                raise AssertionError(f"{label} round {k}: the clicks differ")
+            if not torch.isfinite(pnxt.prev_probs).all():
+                raise AssertionError(f"{label} round {k}: plain non-finite")
+            worst = max(worst, float(
+                (nxt.prev_probs - pnxt.prev_probs).abs().max()))
+            iou_err = max(iou_err, abs(float(iou) - float(piou)))
+            st = nxt
+    ok = worst <= TILED_BF16_TOL
+    _log(f"  {label}: {clicks} rounds, kernels vs plain twins on the card "
+         f"(bf16), each from the kernels' state: clicks equal, max |dprob| "
+         f"{worst:.4e} (limit {TILED_BF16_TOL}), max |dIoU| {iou_err:.4e} "
+         f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"{label}: kernels vs plain twins {worst}")
+    return worst, iou_err
+
+
+def _protocol_path(model, mcfg, crop, kw, image, gt, per_round, label,
+                   dev, card, clicks: int = CLICKS):
+    """Phase 18b-d: one protocol's sessions through `Predictor` at `crop`
+    (PredictorConfig fields `kw`): two sessions with the launch checks,
+    replayed rounds against the eager `click_scan` and each round against
+    the plain twins. Returns (predictor, numbers, wrapper counts)."""
+    from pvpuformer_tpu_torch.evaluate import at_crop
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         init_session)
+    m, c = at_crop(model, mcfg, crop)
+    pred = Predictor(m, PredictorConfig(model=c, target_size=crop,
+                                        with_flip=True, **kw), device=dev)
+    sessions, session = _family_sessions(pred, image, gt, clicks)
+    per_click, calls, device = _launch_checks(
+        sessions, per_round, 2 * clicks, f"{label} sessions",
+        traced=[(session, clicks)] * 2)
+    state0 = init_session(image, gt, c.num_max_points,
+                          pred._canvas(*image.shape[:2]), dev)
+    rv = _replay_vs_eager(pred, state0, clicks, label, card)
+    dprob, diou = _rounds_vs_plain(pred, state0, clicks, label, card)
+    return pred, {"session_p50_ms": float(np.median(per_click)),
+                  "replay_p50_ms": rv["replay_p50_ms"],
+                  "eager_p50_ms": rv["eager_p50_ms"],
+                  "replay_device_ms": rv["replay_device_ms"],
+                  "plain_max_dprob": dprob, "plain_max_diou": diou,
+                  "device_launches": device}, calls
+
+
+def _cli_curves(folder, name):
+    import pickle
+    with open(os.path.join(folder, name), "rb") as f:
+        return pickle.load(f)["all_ious"]
+
+
+def phase_eval_cli(dev, card: str):
+    """Phase 18: the evaluation CLI's protocol flags on ViT-B@448 bf16,
+    seeded random weights (`--random-weights`). Returns the wrapper counts
+    of the in-process sessions' eager and captured rounds."""
+    import dataclasses as dc
+    import tempfile
+    import torch
+    from PIL import Image
+    from pvpuformer_tpu_torch import evaluate as cli
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference import predictor as tpred
+    from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
+    from pvpuformer_tpu_torch.inference.evaluation import evaluate_dataset
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         init_session)
+    from pvpuformer_tpu_torch.models import registry
+
+    t_phase = time.perf_counter()
+    total, out = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    model, mcfg = cli.build_model(cli.parse_args(["--random-weights"]))
+    depth = mcfg.backbone.depth
+    graphs.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- (a) the repo launcher's command, as a process ---
+        logs_a = os.path.join(tmp, "a")
+        text, secs = _subprocess(
+            [EVAL_CLI, "--random-weights", "--datasets", "Synthetic",
+             "--limit", str(CLI_LIMIT), "--logs-path", logs_a] + LAUNCHER,
+            tmp, "the launcher's command")
+        name = "Synthetic_cvpr_NoBRS_20.pickle"
+        got = _cli_curves(logs_a, name)
+        crop, skip = cli.protocol_crop(cli.parse_args(LAUNCHER), "Synthetic",
+                                       registry.crop_size(mcfg))
+        m, c = cli.at_crop(model, mcfg, crop)
+        pred = Predictor(m, PredictorConfig(
+            model=c, target_size=crop, with_flip=True, skip_clicks=skip,
+            cascade_step=1, cascade_adaptive=True, cascade_clicks=1),
+            device=dev)
+        want, _ = evaluate_dataset(
+            cli._Subset(SyntheticDataset(), range(CLI_LIMIT)), pred,
+            max_iou_thr=1.01, max_clicks=20)
+        del pred, m
+        same = (len(got) == len(want) == CLI_LIMIT
+                and all(a.shape == (20,) and np.array_equal(a, b)
+                        for a, b in zip(got, want)))
+        table = [ln for ln in text.splitlines()
+                 if ln.startswith(("|", "mIoU@k", "saved IoU"))]
+        _log(f"  (a) python -m {EVAL_CLI} --random-weights --datasets "
+             f"Synthetic --limit {CLI_LIMIT} {' '.join(LAUNCHER)}: rc 0 in "
+             f"{secs:.1f} s; curves against an in-process evaluate_dataset "
+             f"at target 1.01 on the same weights: "
+             f"{'bit-identical' if same else 'DIFFER'}")
+        for ln in table:
+            _log(f"    {ln}")
+        if not same or not any("NoC@90%" in ln for ln in table):
+            raise AssertionError(f"(a) the launcher's command: {got} vs "
+                                 f"{want}")
+        out["launcher_s"] = secs
+
+        # --- (e) --profile: the same curves, every click timed ---
+        logs_e = os.path.join(tmp, "e")
+        text, secs = _subprocess(
+            [EVAL_CLI, "--random-weights", "--datasets", "Synthetic",
+             "--limit", str(CLI_LIMIT), "--logs-path", logs_e, "--profile"]
+            + LAUNCHER, tmp, "--profile")
+        prof = next(ln for ln in text.splitlines()
+                    if ln.startswith("per-click latency: "))
+        summary = json.loads(prof[len("per-click latency: "):]
+                             .replace("'", '"'))
+        mem = next(ln for ln in text.splitlines()
+                   if ln.startswith("memory: "))
+        hist = [ln for ln in text.splitlines() if " ms:" in ln]
+        pgot = _cli_curves(logs_e, name)
+        same = all(np.array_equal(a, b) for a, b in zip(pgot, got))
+        ok = (same and summary["count"] == 20 * CLI_LIMIT
+              and len(hist) == 10 and '"cuda:0"' in mem.replace("'", '"')
+              and "bytes_limit_mb" in mem)
+        _log(f"  (e) --profile: rc 0 in {secs:.1f} s; curves equal (a)'s: "
+             f"{same}; per-click p50 {summary['p50_ms']:.3f} ms, p90 "
+             f"{summary['p90_ms']:.3f} ms, p99 {summary['p99_ms']:.3f} ms, "
+             f"max {summary['max_ms']:.3f} ms over {summary['count']} "
+             f"clicks; {mem} {'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError(f"(e) --profile: {text[-3000:]}")
+        out["profile"] = dict(summary, memory=mem[len("memory: "):])
+
+        # --- (f) --vis-preds and (g) --clicks-limit / --model-name ---
+        logs_f = os.path.join(tmp, "f")
+        text, secs = _subprocess(
+            [EVAL_CLI, "--random-weights", "--datasets", "Synthetic",
+             "--limit", str(CLI_LIMIT), "--logs-path", logs_f,
+             "--n-clicks", str(CLI_VIS_CLICKS), "--iou-analysis",
+             "--vis-preds", "--clicks-limit", str(CLI_CLICKS_LIMIT),
+             "--model-name", "vitb448-random"], tmp,
+            "--vis-preds --clicks-limit --model-name")
+        fgot = _cli_curves(logs_f, f"Synthetic_cvpr_NoBRS_"
+                                   f"{CLI_VIS_CLICKS}.pickle")
+        vis = os.path.join(logs_f, "vis", "Synthetic")
+        pngs = sorted(os.listdir(vis)) if os.path.isdir(vis) else []
+        h, w = SyntheticDataset().hw
+        shapes = [np.asarray(Image.open(os.path.join(vis, f))).shape
+                  for f in pngs]
+        early = all(np.array_equal(a[:CLI_CLICKS_LIMIT],
+                                   b[:CLI_CLICKS_LIMIT])
+                    for a, b in zip(fgot, got))
+        ok = (pngs == [f"{i}.png" for i in range(CLI_LIMIT)]
+              and all(sh == (CLI_VIS_CLICKS * 2 * h, 3 * w, 3)
+                      for sh in shapes)
+              and "Eval results for model: vitb448-random" in
+              text.splitlines() and early
+              and all(len(a) == CLI_VIS_CLICKS for a in fgot))
+        _log(f"  (f, g) --vis-preds --clicks-limit {CLI_CLICKS_LIMIT} "
+             f"--model-name vitb448-random --n-clicks {CLI_VIS_CLICKS}: rc 0 "
+             f"in {secs:.1f} s; PNGs {pngs} of {shapes} (click rows x "
+             f"2 x {h}, 3 x {w}); header carries the name; the first "
+             f"{CLI_CLICKS_LIMIT} clicks' IoUs equal (a)'s: {early} "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(f, g): {text[-3000:]}")
+
+    # --- (b) the cascade, (c) --eval-ritm, (d) --eval-mode fixed ---
+    sample = SyntheticDataset(1, PROTOCOL_HW, seed=5).get_sample(0)
+    image, gt = sample.image, sample.gt_mask(0).astype(np.float32)
+    fwd = {"fused_attention": depth, "fused_ln_mlp": depth,
+           "minplus_rows": 1}
+    cascade = {k: v * (CASCADE["cascade_step"] if k != "minplus_rows"
+                       else 1) for k, v in fwd.items()}
+    runs = (("cascade", "(b) cascade --cf-n 2 --cf-click 3 --acf",
+             (448, 448), CASCADE, cascade),
+            ("ritm400", "(c) --eval-ritm crop 400", RITM_CROP,
+             {"skip_clicks": 1}, fwd),
+            ("fixed448x672", "(d) --eval-mode fixed448,672", FIXED_CROP, {},
+             fwd))
+    for key, label, crop, kw, per_round in runs:
+        pred, out[key], calls = _protocol_path(
+            model, mcfg, crop, kw, image, gt, per_round, label, dev, card)
+        add(calls)
+        if key == "cascade":
+            bpred = pred
+        else:
+            del pred
+    # the cascade's p50 beside --cf-n 0 and --cf-n 2 without --acf, and a
+    # box session with the cascade (its draws made once a click)
+    m0 = bpred.model
+    state0 = init_session(image, gt, mcfg.num_max_points,
+                          bpred._canvas(*image.shape[:2]), dev)
+    for tag, kw in (("cf_n0", {}), ("cf_n2_no_acf",
+                                    dict(CASCADE, cascade_adaptive=False))):
+        p = Predictor(m0, PredictorConfig(model=bpred.cfg.model,
+                                          target_size=(448, 448),
+                                          with_flip=True, **kw), device=dev)
+        p.set_input(image, gt)
+        p.run_clicks(2)                     # its eager and captured rounds
+        out[tag] = _replay_vs_eager(p, state0, CLICKS, f"(b) {tag}", card)
+        del p
+    box = Predictor(m0, dc.replace(bpred.cfg, prompt_mode=1), device=dev)
+    box_round = {"fused_attention": 3 * depth, "fused_ln_mlp": 3 * depth,
+                 "minplus_rows": 1 + 3, "cc_labels": 3, "component_max": 3}
+
+    def box_session():
+        box.set_input(image, gt)
+        ious = box.run_clicks(PROMPT_CLICKS)
+        if not (np.isfinite(ious).all() and (ious >= 0).all()
+                and (ious <= 1).all()):
+            raise AssertionError(f"cascade box session IoUs {ious}")
+        return ious
+    _, calls, _ = _launch_checks(box_session, box_round, PROMPT_CLICKS,
+                                 "(b) cascade box session (multi-prompt)")
+    add(calls)
+    draws = [0]
+
+    def count(wrapped):
+        def draw(*a, **kw):
+            draws[0] += 1
+            return wrapped(*a, **kw)
+        return draw
+    with _patched(tpred, "_prompt_noise", count):
+        box_session()
+    _log(f"  (b) cascade box session: {draws[0]} host prompt draws over "
+         f"{PROMPT_CLICKS} replayed clicks of {CASCADE['cascade_step']} "
+         f"forwards each "
+         f"{'ok' if draws[0] == PROMPT_CLICKS else 'FAIL'}")
+    if draws[0] != PROMPT_CLICKS:
+        raise AssertionError(f"box draws {draws[0]}")
+    out["box"] = _replay_vs_eager(box, state0, PROMPT_CLICKS,
+                                  "(b) cascade box session", card)
+    del box, bpred, m0
+    graphs.clear()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase18": {"card": card, **out,
+                                  "kernels_at_protocol_shapes":
+                                      PROTOCOL_SHAPES}}))
+    _log(f"  phase 18: {out['seconds']:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4058,7 +4416,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/17] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/18] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -4070,7 +4428,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/17] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/18] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler, then "
              "PlainVit and the zoo families")
@@ -4081,50 +4439,50 @@ def main() -> int:
                           "card": smi}))
         return 0
 
-    _log("[3/17] kernels vs plain versions")
+    _log("[3/18] kernels vs plain versions")
     res = phase_kernels(dev)
-    _log("[4/17] model parity, tiny config f32")
+    _log("[4/18] model parity, tiny config f32")
     phase_parity(dev)
-    _log("[5/17] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/18] main path: ViT-B@448 bf16 click sessions")
     launches, model = phase_main(dev, smi)
-    _log("[6/17] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/18] prompt parity, tiny config f32, four prompt variants")
     phase_prompt_parity(dev)
-    _log("[7/17] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/18] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = phase_prompts(dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     graphs.clear()                  # the captured rounds' memory
     torch.cuda.empty_cache()
-    _log("[8/17] training parity, tiny config f32")
+    _log("[8/18] training parity, tiny config f32")
     phase_train_parity(dev)
-    _log("[9/17] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/18] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = phase_train(dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/17] evaluation parity, tiny config f32: sequential and "
+    _log("[10/18] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
     phase_eval_parity(dev)
-    _log("[11/17] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _log("[11/18] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     phase_batched(dev, smi)
     torch.cuda.empty_cache()
     phase_graph_cache(dev, smi)
-    _log("[12/17] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _log("[12/18] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     phase_presets(dev, smi)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[13/17] the training entry point: the tiny recipe and the "
+    _log("[13/18] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
          "shipped recipe through the data pipeline")
     phase_entry(dev)
     phase_recipe(dev, smi)
     torch.cuda.empty_cache()
-    _log("[14/17] serving parity, tiny config f32: controller, int8 and BRS "
+    _log("[14/18] serving parity, tiny config f32: controller, int8 and BRS "
          "sessions, CUDA vs the CPU")
     phase_serving_parity(dev)
-    _log("[15/17] serving at ViT-B@448 bf16: the HTTP service, the demo, "
+    _log("[15/18] serving at ViT-B@448 bf16: the HTTP service, the demo, "
          "user clicks (bf16 and int8), f-BRS-B and RGB-BRS")
     serving = phase_serving(dev, smi)
     for name in ("fused_attention", "fused_attention_bwd", "minplus_rows",
@@ -4132,19 +4490,28 @@ def main() -> int:
         launches[name] += serving.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[16/17] model families: PlainVit ViT-B@448 and the zoo at their "
+    _log("[16/18] model families: PlainVit ViT-B@448 and the zoo at their "
          "default configs, bf16; tiny f32 parity")
     families = phase_families(dev, smi)
     for name in launches:
         launches[name] += families.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[17/17] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
+    _log("[17/18] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
          "training and sharded batched evaluation), FSDP at world size 1 "
          "under NCCL (the ViT-L recipe), evaluate --eval-mesh 1")
     scale = phase_scaleout(dev, smi)
     for name in launches:
         launches[name] += scale.get(name, 0)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    _log("[18/18] the evaluation CLI's protocols: the launcher's command, "
+         "--profile and --vis-preds as processes; the CFR cascade, "
+         "--eval-ritm and --eval-mode fixed448,672 sessions at ViT-B@448 "
+         "bf16")
+    cli_launches = phase_eval_cli(dev, smi)
+    for name in launches:
+        launches[name] += cli_launches.get(name, 0)
     _log(f"whole script: {time.perf_counter() - t_script:.1f} s")
 
     meta = {

@@ -355,10 +355,11 @@ def test_cli_runs_on_the_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("argv,message", [
     (["f-BRS-B", "--int8"], "NoBRS only"),
-    (["--sam-model-type", "vit_h"], "not ported yet"),
-    (["--vis-preds"], "not ported yet"),
     (["--batched", "2", "f-BRS-B"], "NoBRS only"),
-    (["SAM", "--sam-checkpoint", "sam.pth"], "not ported yet")])
+    (["SAM", "--batched", "2"], "NoBRS only"),
+    (["--batched", "2", "--eval-mesh", "2", "--vis-preds"],
+     "takes no --eval-mesh"),
+    (["RITM"], "is not one of")])
 def test_cli_refuses_what_is_not_ported(argv, message, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--random-weights", "--device", "cpu"] + argv)

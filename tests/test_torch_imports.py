@@ -52,6 +52,8 @@ import pvpuformer_tpu_torch.models.zoo.swin_unet
 import pvpuformer_tpu_torch.inference.tiled
 import pvpuformer_tpu_torch.parallel.dist
 import pvpuformer_tpu_torch.parallel.mesh
+import pvpuformer_tpu_torch.utils.profiling
+import pvpuformer_tpu_torch.inference.sam_compat
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton',
                                     'tkinter', 'demo', 'demo_widgets'))
