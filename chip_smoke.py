@@ -105,8 +105,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      B = 16's masks; the captured rounds' cache (`phase_graph_cache`): per
      key the ms of its first (eager), second (captured) and third
      (replayed) round and the memory reserved, and sequential evaluation
-     over six canvas buckets met round robin in sessions of 1, 3 and 20
-     clicks, eager and replayed with 4 and 8 graphs (MAX_GRAPHS is 8);
+     over six canvas buckets met round robin twice in sessions of 1, 3 and
+     10 clicks, eager and replayed with 4 and 8 graphs (MAX_GRAPHS is 8);
  12. presets: one 3-click bf16 session each of ViT-L@448 and ViT-H@448,
      random weights, with the launch checks;
  13. the training entry point: (a) `python -m pvpuformer_tpu_torch.train`
@@ -209,9 +209,28 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      5-click box session with the cascade (its launch checks, one host
      prompt draw a click); one {"phase18": ...} JSON line with the
      numbers and phase 3's checks at the protocol shapes;
+ 19. the int8 accuracy gate and reference checkpoints: (a)
+     `gate_int8.gate` at the ViT-B / L / H widths (768, 1024, 1280; the
+     depth-4 protocol config at 224), at the port's seeded init and after
+     60 steps of `train_synthetic` (Adam 5e-5, the iterloss step on
+     synthetic blobs), bf16 against int8 sessions of 24 samples x 6
+     clicks: random init mean |dIoU| < 0.005 and max < 0.02, trained mean
+     < 0.005 and p95 < 0.02 (the max and the divergence rate reported),
+     the first click equal in every session, and the training loss lower
+     over the last 10 steps than over the first 10, like against like
+     (each step's loss over the mean of its num_iters); each run's
+     summary on a {"gate": ...} line; (b) the ViT-B@448 VPU (depth 12, a
+     28 x 28 grid) from a reference-named .pth (`load_vpu_checkpoint`)
+     and HRNet-18s + OCR-64 from RITM-named keys
+     (`convert_hrnet_checkpoint`, its OCR conv biases kept), each loaded
+     strictly by `registry.load`: a 5-click f32 session on the card
+     against the CPU's (identical clicks, IoU within 1e-5) and the first
+     forward's logits (REF_LOGIT_TOL of the largest), then bf16 sessions
+     with the launch checks and the replayed rounds against the eager
+     `click_scan` (bit-identical); one {"phase19": ...} JSON line;
 then one JSON line of kernel summaries (launches: the wrapper counts
-summed over the paths of phases 5, 7, 9, 15, 16, 17 and 18), the card's
-name and power limit, and, last, {"ok": true, "device": ...}.
+summed over the paths of phases 5, 7, 9, 15, 16, 17, 18 and 19), the
+card's name and power limit, and, last, {"ok": true, "device": ...}.
 
 LAUNCH CHECKS. A kernel wrapper counts its calls where it launches: in an
 eager round and in the capture of a round, which records the launch into
@@ -235,16 +254,16 @@ the host-clock median of unprofiled rounds beside it; then the replayed
 click round of PlainVit ViT-B@448 and of each zoo family at its default
 config the same way (`profile_families`).
 
-No phase's depth was cut for time: phases 1-16, the build included,
-took about 570 s on an NVIDIA H100 80GB HBM3 at 700 W (phase 5's two
-bench processes about 65 s of it, phase 16 about 70 s; the launch
-checks' second runs under the profiler, each window opened by 0.25 s of
-guard kernels, and the graph-cache workload add the most beyond the
-phases themselves), phase 17 about 165 s more (its FSDP process
-about 95 s, most of it building ViT-L twice on the host) and phase 18
-about 126 s (its three CLI processes about 14 s each), of the script's
-1200 s limit; the last lines print the phases' and the whole script's
-seconds.
+For time, the graph-cache workload runs two passes of sessions of 1, 3
+and 10 clicks. On an NVIDIA H100 80GB HBM3 at 700 W the whole script took
+862-985 s of its 1200 s limit, the host moving the phases by 12-17%
+between runs: phase 11's batched evaluation 178-192 s (its work, traced
+again under the profiler and run eagerly), phase 17 121-175 s (its FSDP
+process builds ViT-L twice on the host), phase 18 113-137 s (three CLI
+processes of about 14 s each), phase 19 81-97 s (the gate's six runs
+56-65 s), phase 5 80-92 s (two bench processes), and about 230 s in
+all went to the launch checks' profiler windows. Each phase's seconds
+are logged as it ends, and the last lines print the whole script's.
 """
 from __future__ import annotations
 
@@ -494,12 +513,17 @@ def phase_kernels(dev):
     # products of the function (S, dV, dP, dQ, dK). Kernel and plain
     # version both start from the forward kernel's row statistics, as the
     # training path's backward does; the click shapes also log the
-    # kernel's device time
+    # kernel's device time; so do the int8 gate's training shapes (phase
+    # 19a: batch 4 at 224, one global window, ViT-B / L / H widths, head
+    # dims 64 and 80)
     bf = torch.bfloat16
     for label, shape, dt in (("window", (128, 196, 12, 64), bf),
                              ("global", (32, 784, 12, 64), bf),
                              ("click window", (8, 196, 12, 64), bf),
                              ("click global", (2, 784, 12, 64), bf),
+                             ("gate ViT-B", (4, 196, 12, 64), bf),
+                             ("gate ViT-L", (4, 196, 16, 64), bf),
+                             ("gate ViT-H", (4, 256, 16, 80), bf),
                              ("small", (2, 100, 3, 32), torch.float32)):
         q, k, v, do = (torch.randn(shape, generator=g).to(dev, dt)
                        for _ in range(4))
@@ -525,7 +549,8 @@ def phase_kernels(dev):
         r = _compare(f"fused_attention_bwd {label} {tuple(shape)} {dt}", call,
                      lambda: fu.fused_attention_bwd_plain(q, k, v, do, sc, st),
                      *((1e-2, 0.0) if bf16 else (1e-4, 1e-4)))
-        dev_ms = _device_ms(call) if label.startswith("click") else None
+        dev_ms = (_device_ms(call) if label.startswith(("click", "gate"))
+                  else None)
         record("fused_attention_bwd", r, label == "global", bound, lib_ms,
                device=(dev_ms, None))
     # the click path's flip batch (2 masks x 448 rows, both error masks),
@@ -735,6 +760,7 @@ def phase_cc(dev, g, record, times):
 TRACE_TRIES = 3          # _launch_checks: traces taken at most
 GUARD = 100              # _kernel_trace: spin kernels ahead of the call
 GUARD_CYCLES = 5_000_000  # about 2.5 ms each at the H100's clock
+TRACE_COST = {"windows": 0, "seconds": 0.0}   # every profiler session
 
 
 def _kernel_trace(fn, sessions: int = 3):
@@ -760,6 +786,7 @@ def _kernel_trace(fn, sessions: int = 3):
     from torch.profiler import ProfilerActivity, profile
     guard = GUARD
     for _ in range(sessions):
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(guard):
                 torch.cuda._sleep(GUARD_CYCLES)
@@ -768,6 +795,8 @@ def _kernel_trace(fn, sessions: int = 3):
             torch.cuda.synchronize()
         seen = sorted((e.time_range.start, e.name) for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        TRACE_COST["windows"] += 1
+        TRACE_COST["seconds"] += time.perf_counter() - t0
         names = [name for _, name in seen if "spin_kernel" not in name]
         kept = len(seen) - len(names)
         if kept < guard:
@@ -2128,8 +2157,8 @@ def phase_batched(dev, card: str):
 # phase 11's graph-cache workload: six canvas buckets met round robin
 CACHE_SIZES = ((448, 448), (300, 500), (384, 512), (500, 300), (256, 320),
                (480, 640))
-CACHE_PASSES = 3
-CACHE_CLICKS = (1, 3, 20)
+CACHE_PASSES = 2
+CACHE_CLICKS = (1, 3, 10)
 CACHE_GRAPHS = (4, 8)     # cache sizes compared (graphs.MAX_GRAPHS is 8)
 
 
@@ -2144,7 +2173,7 @@ def phase_graph_cache(dev, card: str):
     (b) Sequential NoC evaluation (`evaluate_dataset` through `Predictor`)
     of Synthetic samples in six canvas buckets taken round robin, so each
     bucket comes back only after the five others, CACHE_PASSES times, in
-    sessions cut at 1, 3 and 20 clicks (max_clicks: the random weights
+    sessions cut at CACHE_CLICKS clicks (max_clicks: the random weights
     cross no threshold): eager (graphs.replayed patched to False) and
     replayed with MAX_GRAPHS patched to each of CACHE_GRAPHS, each from an
     empty cache: seconds, ms per click, the rounds run eagerly, captured
@@ -4400,6 +4429,474 @@ def phase_eval_cli(dev, card: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the int8 accuracy gate (gate_int8.py) and reference checkpoints
+# (utils/torch_ingest.py) on the card
+# ---------------------------------------------------------------------------
+
+GATE_DIMS = (768, 1024, 1280)
+GATE_SAMPLES = 24         # 19a: JAX's envelope, 24 samples x 6 clicks
+GATE_CLICKS = 6
+GATE_TRAIN_STEPS = 60
+GATE_MEAN, GATE_MAX = 0.005, 0.02    # tests/test_quant.py:101-164's bounds
+REF_CLICKS = 5            # 19b: clicks of each reference-checkpoint session
+REF_LOGIT_TOL = 1e-4      # 19b: card f32 forward vs the CPU's, of max |logit|
+
+
+def _loss_windows(losses):
+    """The first 10 and last 10 steps' mean loss, the same like against
+    like, and per num_iters (1 + step % 3) the mean over its steps in each
+    window. A step of r rounds sums the iterloss weights (1, 2, 3) of its
+    r rounds, so its loss scales with r, and the two 10-step windows hold
+    different mixes (three 3-round steps in the first, four in the last).
+    Like against like divides each step's loss by the mean loss of the
+    run's steps with its num_iters before the windows' means are taken."""
+    steps = len(losses)
+    kind = [1 + i % 3 for i in range(steps)]
+    scale = {r: np.mean([v for v, k in zip(losses, kind) if k == r])
+             for r in set(kind)}
+    rel = [v / scale[k] for v, k in zip(losses, kind)]
+    by = {}
+    for r in sorted(scale):
+        a = [losses[i] for i in range(10) if kind[i] == r]
+        b = [losses[i] for i in range(steps - 10, steps) if kind[i] == r]
+        by[r] = (float(np.mean(a)), float(np.mean(b)))
+    return {"loss_first10": float(np.mean(losses[:10])),
+            "loss_last10": float(np.mean(losses[-10:])),
+            "relative_first10": float(np.mean(rel[:10])),
+            "relative_last10": float(np.mean(rel[-10:])),
+            "loss_by_num_iters": by}
+
+
+def phase_gate(dev, card: str):
+    """Phase 19a: `gate_int8.gate` at each width of GATE_DIMS, at the
+    port's seeded init and after GATE_TRAIN_STEPS steps of
+    `train_synthetic`, bf16 against int8 sessions of GATE_SAMPLES x
+    GATE_CLICKS. Random init: mean |dIoU| < GATE_MEAN, max < GATE_MAX;
+    trained: mean < GATE_MEAN, p95 < GATE_MAX (a trained max can be a
+    path that parted, BASELINE.md:133-136); the first click equal in
+    every session; the loss of the last 10 steps below the first 10's,
+    like against like (`_loss_windows`). Returns (the wrapper counts of
+    the runs, their summaries)."""
+    import torch
+    from pvpuformer_tpu_torch import gate_int8
+    from pvpuformer_tpu_torch.inference import graphs
+    total, runs = {}, []
+    for dim in GATE_DIMS:
+        for steps in (0, GATE_TRAIN_STEPS):
+            graphs.clear()
+            torch.cuda.empty_cache()
+            _zero_counts()
+            t = time.perf_counter()
+            out, losses, _, _ = gate_int8.gate(
+                dim, GATE_SAMPLES, GATE_CLICKS, steps, dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            for k, v in _counts().items():
+                total[k] = total.get(k, 0) + v
+            spread = "iou_delta_p95" if steps else "iou_delta_max"
+            ok = (out["iou_delta_mean"] < GATE_MEAN
+                  and out[spread] < GATE_MAX
+                  and 0 not in out["first_divergent_click"])
+            rec = {**out, "seconds": secs, "card": card}
+            if steps:
+                rec.update(_loss_windows(losses))
+                ok = ok and rec["relative_last10"] < rec["relative_first10"]
+            runs.append(rec)
+            print(json.dumps({"gate": rec}), flush=True)
+            kind = f"trained {steps}" if steps else "random"
+            _log(f"  gate {dim} {kind}: mean {out['iou_delta_mean']}, p95 "
+                 f"{out['iou_delta_p95']}, max {out['iou_delta_max']}, "
+                 f"divergence "
+                 f"{out['seq_divergence_rate']}"
+                 + (f", loss first 10 {rec['loss_first10']:.4f} last 10 "
+                    f"{rec['loss_last10']:.4f}, like against like "
+                    f"{rec['relative_first10']:.4f} -> "
+                    f"{rec['relative_last10']:.4f}, by num_iters (first, "
+                    f"last) "
+                    + str({r: (round(a, 4), round(b, 4)) for r, (a, b) in
+                           rec["loss_by_num_iters"].items()})
+                    if steps else "")
+                 + f", {secs:.1f} s {'ok' if ok else 'FAIL'} ({card})")
+            if not ok:
+                raise AssertionError(f"int8 gate at {dim}, {steps} steps: "
+                                     f"{rec}")
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return total, runs
+
+
+def reference_vpu_sd(cfg, seed=0):
+    """A made-up state dict with the reference VitMultiGaussianVector_ed_Model
+    names and shapes (is_vpu_model.py:165-186, SimpleFPN, the two-way
+    transformer, the head), the generator of tests/test_utils.py:155-258
+    (chip_smoke imports nothing of the tests, which import JAX)."""
+    r = np.random.default_rng(seed)
+    d = cfg.backbone.embed_dim
+    gh, gw = cfg.backbone.grid_size
+    ph, pw = cfg.backbone.patch_size
+    sd = {}
+
+    def lin(name, i, o, bias=True):
+        sd[f"{name}.weight"] = r.normal(0, 0.02, (o, i)).astype(np.float32)
+        if bias:
+            sd[f"{name}.bias"] = r.normal(0, 0.02, (o,)).astype(np.float32)
+
+    def ln(name, c):
+        sd[f"{name}.weight"] = np.ones((c,), np.float32)
+        sd[f"{name}.bias"] = np.zeros((c,), np.float32)
+
+    def conv(name, i, o, k=1, bias=True):
+        sd[f"{name}.weight"] = r.normal(0, 0.02, (o, i, k, k)).astype(
+            np.float32)
+        if bias:
+            sd[f"{name}.bias"] = np.zeros((o,), np.float32)
+
+    def deconv(name, i, o):
+        sd[f"{name}.weight"] = r.normal(0, 0.02, (i, o, 2, 2)).astype(
+            np.float32)
+        sd[f"{name}.bias"] = np.zeros((o,), np.float32)
+
+    def attn(name, dim, internal):
+        for part in ("q_proj", "k_proj", "v_proj"):
+            lin(f"{name}.{part}", dim, internal)
+        lin(f"{name}.out_proj", internal, dim)
+
+    sd["backbone.patch_embed.proj.weight"] = r.normal(
+        0, 0.02, (d, 3, ph, pw)).astype(np.float32)
+    sd["backbone.patch_embed.proj.bias"] = np.zeros((d,), np.float32)
+    sd["backbone.pos_embed"] = r.normal(
+        0, 0.02, (1, gh * gw + 1, d)).astype(np.float32)
+    sd["backbone.cls_token"] = np.zeros((1, 1, d), np.float32)
+    for i in range(cfg.backbone.depth):
+        b = f"backbone.blocks.{i}"
+        ln(f"{b}.norm1", d)
+        lin(f"{b}.attn.qkv", d, 3 * d)
+        lin(f"{b}.attn.proj", d, d)
+        ln(f"{b}.norm2", d)
+        lin(f"{b}.mlp.fc1", d, int(d * cfg.backbone.mlp_ratio))
+        lin(f"{b}.mlp.fc2", int(d * cfg.backbone.mlp_ratio), d)
+
+    conv("patch_embed_coords.proj", 3, d, k=ph)
+    sd["pe_layer.positional_encoding_gaussian_matrix"] = r.normal(
+        0, 1, (2, d // 2)).astype(np.float32)
+    for i in range(4):
+        sd[f"point_embeddings.{i}.weight"] = r.normal(
+            0, 1, (1, d)).astype(np.float32)
+    sd["not_a_point_embed.weight"] = r.normal(0, 1, (1, d)).astype(np.float32)
+
+    nc = cfg.neck
+    lin("neck.ffn_layer.lin1", nc.prompt_dim, nc.hide_dim * 2)
+    lin("neck.ffn_layer.lin2", nc.hide_dim * 2, d)
+    tw = nc.two_way
+    internal = tw.embedding_dim // tw.attention_downsample_rate
+    for i in range(tw.depth):
+        b = f"neck.att.layers.{i}"
+        attn(f"{b}.self_attn", d, d)
+        ln(f"{b}.norm1", d)
+        attn(f"{b}.cross_attn_token_to_image", d, internal)
+        ln(f"{b}.norm2", d)
+        lin(f"{b}.mlp.lin1", d, tw.mlp_dim)
+        lin(f"{b}.mlp.lin2", tw.mlp_dim, d)
+        ln(f"{b}.norm3", d)
+        attn(f"{b}.cross_attn_image_to_token", d, internal)
+        ln(f"{b}.norm4", d)
+    attn("neck.att.final_attn_token_to_image", d, internal)
+    ln("neck.att.norm_final_attn", d)
+
+    deconv("neck.down_4.0", d, nc.down4_chan)
+    ln("neck.down_4.1", nc.down4_chan)
+    deconv("neck.down_4.3", nc.down4_chan, nc.down4_chan // 2)
+    ln("neck.down_4.4", nc.down4_chan // 2)
+    conv("neck.down_4.5", nc.down4_chan // 2, nc.out_dims[0])
+    ln("neck.down_4.6", nc.out_dims[0])
+    deconv("neck.down_8.0", d, nc.down8_chan)
+    ln("neck.down_8.1", nc.down8_chan)
+    conv("neck.down_8.2", nc.down8_chan, nc.out_dims[1])
+    ln("neck.down_8.3", nc.out_dims[1])
+    conv("neck.down_16.0", d, nc.out_dims[2])
+    ln("neck.down_16.1", nc.out_dims[2])
+    conv("neck.down_32.0", d, nc.down32_chan, k=2)
+    ln("neck.down_32.1", nc.down32_chan)
+    conv("neck.down_32.2", nc.down32_chan, nc.out_dims[3])
+    ln("neck.down_32.3", nc.out_dims[3])
+
+    hc = cfg.head
+    for i, ic in enumerate(hc.in_channels):
+        conv(f"head.convs.{i}.conv", ic, hc.out_channels)
+    conv("head.fusion_conv.conv", hc.out_channels * 4, hc.out_channels)
+    conv("head.conv_seg", hc.channels, 1)
+    sd["head.logit_scale"] = np.asarray(np.log(1 / 0.07), np.float32)
+    lin("head.ffn_layer.lin1", hc.d_model, hc.d_model * 2)
+    lin("head.ffn_layer.lin2", hc.d_model * 2, hc.out_channels)
+    conv("head_aux", 128, 1)
+    return sd
+
+
+def reference_hrnet_sd(cfg, seed=0):
+    """A made-up RITM HRNetModel state dict (hrnet_ocr.py names), the
+    generator of tests/test_utils.py:336-426, with the conv biases in front
+    of the OCR head's BNs (`conv3x3_ocr.0`, `aux_head.0`) drawn away from
+    zero."""
+    r = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, i, o, k=3, bias=False):
+        sd[f"{name}.weight"] = r.normal(0, 0.02, (o, i, k, k)).astype(
+            np.float32)
+        if bias:
+            sd[f"{name}.bias"] = r.normal(0, 0.05, (o,)).astype(np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = np.ones((c,), np.float32)
+        sd[f"{name}.bias"] = np.zeros((c,), np.float32)
+        sd[f"{name}.running_mean"] = r.normal(0, 0.1, (c,)).astype(np.float32)
+        sd[f"{name}.running_var"] = r.uniform(0.5, 2.0, (c,)).astype(
+            np.float32)
+
+    def cb(cname, bname, i, o, k=3, bias=False):
+        conv(cname, i, o, k, bias)
+        bn(bname, o)
+
+    conv("maps_transform.0", 3, 16, k=1, bias=True)
+    conv("maps_transform.2", 16, 64, k=3, bias=True)
+    sd["maps_transform.3.scale"] = np.asarray([0.05], np.float32)
+
+    fx = "feature_extractor."
+    w = cfg.branch_widths
+    blocks = cfg.blocks_per_module
+    cb(f"{fx}conv1", f"{fx}bn1", 3, 64)
+    cb(f"{fx}conv2", f"{fx}bn2", 64, 64)
+    for j in range(blocks):
+        p = f"{fx}layer1.{j}"
+        cin = 64 if j == 0 else 256
+        cb(f"{p}.conv1", f"{p}.bn1", cin, 64, k=1)
+        cb(f"{p}.conv2", f"{p}.bn2", 64, 64, k=3)
+        cb(f"{p}.conv3", f"{p}.bn3", 64, 256, k=1)
+        if j == 0:
+            cb(f"{p}.downsample.0", f"{p}.downsample.1", cin, 256, k=1)
+
+    def transition(tname, prev, cur):
+        for i, cw in enumerate(cur):
+            base = f"{fx}{tname}.{i}"
+            if i < len(prev):
+                if prev[i] != cw:
+                    cb(f"{base}.0", f"{base}.1", prev[i], cw)
+            else:
+                cb(f"{base}.0.0", f"{base}.0.1", prev[-1], cw)
+
+    def stage(sname, widths, n_modules):
+        for m in range(n_modules):
+            p = f"{fx}{sname}.{m}"
+            for b, bw in enumerate(widths):
+                for j in range(blocks):
+                    q = f"{p}.branches.{b}.{j}"
+                    cb(f"{q}.conv1", f"{q}.bn1", bw, bw)
+                    cb(f"{q}.conv2", f"{q}.bn2", bw, bw)
+            nbr = len(widths)
+            for i in range(nbr):
+                for j in range(nbr):
+                    f = f"{p}.fuse_layers.{i}.{j}"
+                    if j > i:
+                        cb(f"{f}.0", f"{f}.1", widths[j], widths[i], k=1)
+                    elif j < i:
+                        cin = widths[j]
+                        for k in range(i - j):
+                            cout = widths[i] if k == i - j - 1 else widths[j]
+                            cb(f"{f}.{k}.0", f"{f}.{k}.1", cin, cout)
+                            cin = cout
+
+    transition("transition1", (256,), w[:2])
+    stage("stage2", w[:2], cfg.num_modules[0])
+    transition("transition2", w[:2], w[:3])
+    stage("stage3", w[:3], cfg.num_modules[1])
+    transition("transition3", w[:3], w)
+    stage("stage4", w, cfg.num_modules[2])
+
+    total = sum(w)
+    mid, key = 2 * cfg.ocr_width, cfg.ocr_width
+    cb(f"{fx}conv3x3_ocr.0", f"{fx}conv3x3_ocr.1", total, mid, bias=True)
+    cb(f"{fx}aux_head.0", f"{fx}aux_head.1", total, total, k=1, bias=True)
+    conv(f"{fx}aux_head.3", total, 1, k=1, bias=True)
+    ob = f"{fx}ocr_distri_head.object_context_block"
+    for name in ("f_pixel", "f_object"):
+        cb(f"{ob}.{name}.0", f"{ob}.{name}.1.0", mid, key, k=1)
+        cb(f"{ob}.{name}.2", f"{ob}.{name}.3.0", key, key, k=1)
+    cb(f"{ob}.f_down.0", f"{ob}.f_down.1.0", mid, key, k=1)
+    cb(f"{ob}.f_up.0", f"{ob}.f_up.1.0", key, mid, k=1)
+    cb(f"{fx}ocr_distri_head.conv_bn_dropout.0",
+       f"{fx}ocr_distri_head.conv_bn_dropout.1.0", 2 * mid, mid, k=1)
+    conv(f"{fx}cls_head", mid, 1, k=1, bias=True)
+    return sd
+
+
+def _reference_session(name, cfg, load, dev, card: str, per_round):
+    """19b for one family: `load(cfg)` reads the written reference .pth into
+    a CPU module (strict, `registry.load`); a REF_CLICKS-click f32 session
+    and the first forward on the card against the CPU (phase 4's check:
+    identical clicks, IoU within 1e-5; the logits within REF_LOGIT_TOL of
+    the largest); then the bf16 session twice with the launch checks, and
+    its replayed rounds against the eager `click_scan` (bit-identical).
+    Returns (wrapper counts, the record)."""
+    import torch
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.inference.predictor import (Predictor,
+                                                         PredictorConfig,
+                                                         init_session)
+    from pvpuformer_tpu_torch.models import registry
+    rng = np.random.default_rng(0)
+    image = (rng.uniform(size=(448, 448, 3)) * 255).astype(np.uint8)
+    gt = np.zeros((448, 448), np.float32)
+    gt[96:352, 128:320] = 1.0
+    f32 = cfg.replace(dtype=torch.float32)
+    pcfg = PredictorConfig(model=f32, target_size=(448, 448), with_flip=True)
+    runs, load_s = [], []
+    for where in ("cpu", dev):
+        t = time.perf_counter()
+        model = load(f32)
+        load_s.append(time.perf_counter() - t)
+        pred = Predictor(model, pcfg, device=where)
+        pred.set_input(image, gt)
+        runs.append((model, pred.run_clicks(REF_CLICKS), pred.clicks))
+    (cpu_model, iou_c, clk_c), (model, iou_g, clk_g) = runs
+    del runs, pred
+    err = float(np.abs(iou_c - iou_g).max())
+    img = torch.from_numpy(np.concatenate(
+        [image / np.float32(255), gt[..., None] * 0], -1)[None]
+        .astype(np.float32))
+    pts = torch.full((1, 2 * f32.num_max_points, 3), -1.0)
+    pts[0, 0] = torch.tensor([224.0, 224.0, 0.0])
+    fwd = registry.forward_for(f32)
+    with torch.no_grad():
+        lc = fwd(cpu_model, f32, img, pts)["instances"]
+        lg = fwd(model, f32, img.to(dev), pts.to(dev))["instances"]
+    del cpu_model
+    logit_err = float((lg.cpu() - lc).abs().max()
+                      / max(1.0, float(lc.abs().max())))
+    ok = np.array_equal(clk_c, clk_g) and err <= 1e-5 \
+        and logit_err <= REF_LOGIT_TOL
+    _log(f"  {name} from a reference .pth, f32 card vs CPU: {REF_CLICKS}-"
+         f"click session clicks "
+         f"{'identical' if np.array_equal(clk_c, clk_g) else 'DIFFER'}, "
+         f"max |dIoU| {err:.2e} (tol 1e-5); first forward's logits "
+         f"{logit_err:.3e} of the largest (tol {REF_LOGIT_TOL}) "
+         f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"{name} reference checkpoint f32: cpu {iou_c} "
+                             f"{clk_c}\ncuda {iou_g} {clk_g}\nlogits "
+                             f"{logit_err}")
+    graphs.clear()
+    pred = Predictor(model, PredictorConfig(model=cfg, target_size=(448, 448),
+                                            with_flip=True), device=dev)
+    sessions, session = _family_sessions(pred, image, gt, REF_CLICKS)
+    per_click, calls, _ = _launch_checks(
+        sessions, per_round, 2 * REF_CLICKS, f"{name} bf16 sessions",
+        traced=[(session, REF_CLICKS)] * 2)
+    state0 = init_session(image, gt, cfg.num_max_points, (448, 448), dev)
+    rv = _replay_vs_eager(pred, state0, REF_CLICKS, f"{name} from a "
+                          f"reference .pth, bf16", card)
+    del pred, model
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return calls, {"f32_iou_err": err, "f32_logit_err": logit_err,
+                   "session_p50_ms": float(np.median(per_click)), **rv,
+                   "load_s_cpu": load_s[0], "load_s_card": load_s[1]}
+
+
+def phase_reference(dev, card: str):
+    """Phase 19b: the ViT-B@448 VPU (depth 12, a 28 x 28 grid) from a
+    reference-named .pth through `load_vpu_checkpoint`, and HRNet-18s +
+    OCR-64 from RITM-named keys through `convert_hrnet_checkpoint` (its OCR
+    conv biases kept), each loaded strictly by `registry.load`. Returns
+    (wrapper counts, records)."""
+    import tempfile
+    import torch
+    from pvpuformer_tpu_torch.models import registry
+    from pvpuformer_tpu_torch.models.vpu import vpu_base_config
+    from pvpuformer_tpu_torch.models.zoo.hrnet import HRNetISConfig
+    from pvpuformer_tpu_torch.utils import torch_ingest
+    from pvpuformer_tpu_torch.utils.serialization import flatten_tree
+    total, recs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vcfg = vpu_base_config(dtype=torch.bfloat16)
+        if vcfg.backbone.grid_size != (28, 28) or vcfg.backbone.depth != 12:
+            raise AssertionError(f"ViT-B@448 grid {vcfg.backbone.grid_size}")
+        t = time.perf_counter()
+        vpath = os.path.join(tmp, "vpu.pth")
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in
+                                   reference_vpu_sd(vcfg).items()},
+                    "config": {"arch": "VitMultiGaussianVector_ed_Model"}},
+                   vpath)
+        write_s = time.perf_counter() - t
+
+        def load_vpu(c):
+            return registry.load(flatten_tree(
+                torch_ingest.load_vpu_checkpoint(vpath, c)), c)
+        depth = vcfg.backbone.depth
+        calls, recs["vpu_vitb448"] = _reference_session(
+            "ViT-B@448 VPU", vcfg, load_vpu, dev, card,
+            {"fused_attention": depth, "fused_ln_mlp": depth,
+             "minplus_rows": 1})
+        recs["vpu_vitb448"]["write_s"] = write_s
+        for k, v in calls.items():
+            total[k] = total.get(k, 0) + v
+        os.remove(vpath)
+
+        hcfg = HRNetISConfig(dtype=torch.bfloat16)
+        hpath = os.path.join(tmp, "hrnet.pth")
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in
+                                   reference_hrnet_sd(hcfg).items()}}, hpath)
+        biases = ("ocr.conv3x3.conv.b", "ocr.aux.c1.conv.b")
+
+        def load_hrnet(c):
+            tree = torch_ingest.convert_hrnet_checkpoint(
+                torch_ingest.load_torch_state_dict(hpath), c)
+            m = registry.load(flatten_tree(tree), c)
+            state = m.state_dict()
+            if not all(b in state and state[b].abs().max() > 0
+                       for b in biases):
+                raise AssertionError("HRNet's OCR conv biases did not load")
+            return m
+        calls, recs["hrnet18s"] = _reference_session(
+            "HRNet-18s + OCR-64", hcfg, load_hrnet, dev, card,
+            {"minplus_rows": 1})
+        for k, v in calls.items():
+            total[k] = total.get(k, 0) + v
+    return total, recs
+
+
+def phase_gate_and_reference(dev, card: str):
+    """Phase 19: (a) the int8 gate, (b) reference checkpoints; prints one
+    {"phase19": ...} JSON line and returns the wrapper counts."""
+    t = time.perf_counter()
+    _log("  (a) the int8 accuracy gate: bf16 against int8 sessions at "
+         f"{', '.join(map(str, GATE_DIMS))}, random init and after "
+         f"{GATE_TRAIN_STEPS} training steps")
+    total, runs = phase_gate(dev, card)
+    t_gate = time.perf_counter() - t
+    _log("  (b) reference checkpoints: ViT-B@448 VPU and HRNet-18s from "
+         "reference-named .pth files")
+    ref_total, refs = phase_reference(dev, card)
+    for k, v in ref_total.items():
+        total[k] = total.get(k, 0) + v
+    secs = time.perf_counter() - t
+    print(json.dumps({"phase19": {"card": card, "gate": runs,
+                                  "reference": refs, "launches": total,
+                                  "gate_s": t_gate, "seconds": secs}}),
+          flush=True)
+    _log(f"  phase 19: {secs:.1f} s (the gate {t_gate:.1f} s) ({card})")
+    return total
+
+
+
+def _timed(phase, *args):
+    """phase(*args), its wall time logged (the script's time budget)."""
+    t = time.perf_counter()
+    out = phase(*args)
+    _log(f"  ({phase.__name__}: {time.perf_counter() - t:.1f} s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4416,7 +4913,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/18] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/19] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -4428,7 +4925,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/18] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/19] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler, then "
              "PlainVit and the zoo families")
@@ -4439,80 +4936,91 @@ def main() -> int:
                           "card": smi}))
         return 0
 
-    _log("[3/18] kernels vs plain versions")
-    res = phase_kernels(dev)
-    _log("[4/18] model parity, tiny config f32")
-    phase_parity(dev)
-    _log("[5/18] main path: ViT-B@448 bf16 click sessions")
-    launches, model = phase_main(dev, smi)
-    _log("[6/18] prompt parity, tiny config f32, four prompt variants")
-    phase_prompt_parity(dev)
-    _log("[7/18] prompt path: ViT-B@448 bf16 box / scribble sessions")
-    prompt_launches, _ = phase_prompts(dev, smi, model)
+    _log("[3/19] kernels vs plain versions")
+    res = _timed(phase_kernels, dev)
+    _log("[4/19] model parity, tiny config f32")
+    _timed(phase_parity, dev)
+    _log("[5/19] main path: ViT-B@448 bf16 click sessions")
+    launches, model = _timed(phase_main, dev, smi)
+    _log("[6/19] prompt parity, tiny config f32, four prompt variants")
+    _timed(phase_prompt_parity, dev)
+    _log("[7/19] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    prompt_launches, _ = _timed(phase_prompts, dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     graphs.clear()                  # the captured rounds' memory
     torch.cuda.empty_cache()
-    _log("[8/18] training parity, tiny config f32")
-    phase_train_parity(dev)
-    _log("[9/18] training path: ViT-B@448 bf16 Trainer steps")
-    train_launches = phase_train(dev, smi)
+    _log("[8/19] training parity, tiny config f32")
+    _timed(phase_train_parity, dev)
+    _log("[9/19] training path: ViT-B@448 bf16 Trainer steps")
+    train_launches = _timed(phase_train, dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/18] evaluation parity, tiny config f32: sequential and "
+    _log("[10/19] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
-    phase_eval_parity(dev)
-    _log("[11/18] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _timed(phase_eval_parity, dev)
+    _log("[11/19] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
-    phase_batched(dev, smi)
+    _timed(phase_batched, dev, smi)
     torch.cuda.empty_cache()
-    phase_graph_cache(dev, smi)
-    _log("[12/18] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
-    phase_presets(dev, smi)
+    _timed(phase_graph_cache, dev, smi)
+    _log("[12/19] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _timed(phase_presets, dev, smi)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[13/18] the training entry point: the tiny recipe and the "
+    _log("[13/19] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
          "shipped recipe through the data pipeline")
-    phase_entry(dev)
-    phase_recipe(dev, smi)
+    _timed(phase_entry, dev)
+    _timed(phase_recipe, dev, smi)
     torch.cuda.empty_cache()
-    _log("[14/18] serving parity, tiny config f32: controller, int8 and BRS "
+    _log("[14/19] serving parity, tiny config f32: controller, int8 and BRS "
          "sessions, CUDA vs the CPU")
-    phase_serving_parity(dev)
-    _log("[15/18] serving at ViT-B@448 bf16: the HTTP service, the demo, "
+    _timed(phase_serving_parity, dev)
+    _log("[15/19] serving at ViT-B@448 bf16: the HTTP service, the demo, "
          "user clicks (bf16 and int8), f-BRS-B and RGB-BRS")
-    serving = phase_serving(dev, smi)
+    serving = _timed(phase_serving, dev, smi)
     for name in ("fused_attention", "fused_attention_bwd", "minplus_rows",
                  "fused_ln_mlp"):
         launches[name] += serving.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[16/18] model families: PlainVit ViT-B@448 and the zoo at their "
+    _log("[16/19] model families: PlainVit ViT-B@448 and the zoo at their "
          "default configs, bf16; tiny f32 parity")
-    families = phase_families(dev, smi)
+    families = _timed(phase_families, dev, smi)
     for name in launches:
         launches[name] += families.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[17/18] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
+    _log("[17/19] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
          "training and sharded batched evaluation), FSDP at world size 1 "
          "under NCCL (the ViT-L recipe), evaluate --eval-mesh 1")
-    scale = phase_scaleout(dev, smi)
+    scale = _timed(phase_scaleout, dev, smi)
     for name in launches:
         launches[name] += scale.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[18/18] the evaluation CLI's protocols: the launcher's command, "
+    _log("[18/19] the evaluation CLI's protocols: the launcher's command, "
          "--profile and --vis-preds as processes; the CFR cascade, "
          "--eval-ritm and --eval-mode fixed448,672 sessions at ViT-B@448 "
          "bf16")
-    cli_launches = phase_eval_cli(dev, smi)
+    cli_launches = _timed(phase_eval_cli, dev, smi)
     for name in launches:
         launches[name] += cli_launches.get(name, 0)
-    _log(f"whole script: {time.perf_counter() - t_script:.1f} s")
+    graphs.clear()
+    torch.cuda.empty_cache()
+    _log("[19/19] the int8 accuracy gate at the ViT-B/L/H widths (random "
+         "and trained weights) and reference checkpoints: the ViT-B@448 "
+         "VPU and HRNet-18s from reference-named .pth files")
+    gate_launches = _timed(phase_gate_and_reference, dev, smi)
+    for name in launches:
+        launches[name] += gate_launches.get(name, 0)
+    _log(f"whole script: {time.perf_counter() - t_script:.1f} s, of which "
+         f"{TRACE_COST['seconds']:.1f} s in {TRACE_COST['windows']} "
+         f"profiler windows (this process's launch checks, the traced "
+         f"work included)")
 
     meta = {
         "fused_attention": ("pvpuformer_tpu_torch/csrc/attention.cu",

@@ -79,11 +79,32 @@ def build(cfg, generator: Optional[torch.Generator] = None,
     return model_for(cfg)(cfg, generator).to(nn.resolve_device(device))
 
 
+def _adopt_conv_biases(model: tnn.Module, state) -> None:
+    """Give a bias-free conv of `model` the bias `state` holds for it: the
+    reference checkpoints carry torch conv biases in front of a BN (RITM's
+    HRNet OCR convs) where the config's tree has none, and the JAX forward
+    adds a conv's `b` wherever the tree has one. Any other leaf the module
+    lacks is left for the strict load to refuse."""
+    have = model.state_dict()
+    modules = dict(model.named_modules())
+    for name, t in state.items():
+        if name in have or not name.endswith(".b"):
+            continue
+        owner = modules.get(name[:-2])
+        if (isinstance(owner, nn.Conv) and owner.b is None
+                and tuple(t.shape) == (owner.w.shape[-1],)):
+            owner.b = nn.param(torch.zeros(t.shape, dtype=owner.w.dtype))
+
+
 def load(flat, cfg) -> tnn.Module:
     """The family's module on the CPU with a checkpoint's flat leaves
-    (`serialization.load_checkpoint`), loaded strictly (missing, extra or
-    mis-shaped leaves raise)."""
+    (`serialization.load_checkpoint`, or a converted reference checkpoint
+    through `serialization.flatten_tree`), loaded strictly: missing, extra
+    or mis-shaped leaves raise, except a bias of a bias-free conv, which
+    the conv takes (`_adopt_conv_biases`)."""
     from ..utils.serialization import params_from_numpy
     model = model_for(cfg)(cfg)
-    model.load_state_dict(params_from_numpy(flat))
+    state = params_from_numpy(flat)
+    _adopt_conv_biases(model, state)
+    model.load_state_dict(state)
     return model

@@ -54,6 +54,7 @@ import pvpuformer_tpu_torch.parallel.dist
 import pvpuformer_tpu_torch.parallel.mesh
 import pvpuformer_tpu_torch.utils.profiling
 import pvpuformer_tpu_torch.inference.sam_compat
+import pvpuformer_tpu_torch.gate_int8
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton',
                                     'tkinter', 'demo', 'demo_widgets'))
