@@ -228,8 +228,27 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      forward's logits (REF_LOGIT_TOL of the largest), then bf16 sessions
      with the launch checks and the replayed rounds against the eager
      `click_scan` (bit-identical); one {"phase19": ...} JSON line;
+ 20. the last model-side modules: (a) caption co-training (`VPUConfig.
+     text`): one tiny f32 2-round caption step on the card against the
+     CPU (loss and every gradient, clip_text's and caption_proj's among
+     them, within CAPTION_TOL), then ViT-B@448 bf16 with the full CLIP text
+     tower (ClipTextConfig(): 12 layers, width 512, context 77) at batch 8,
+     3 steps of 3 rounds with byte_tokenizer captions and 3 without: ms
+     per step, peak memory, the attention forward, its backward and the
+     LN+MLP kernel 12 times a round each, min-plus and CC as the prompt
+     types predict, the text tower's gradient norms, and no host sync
+     more with captions than without (phase 9's counter); (b) the
+     vision-language decoder at DecoderConfig() on the 28 x 28 grid, all
+     four as_text x image_to_token forms with their intermediates, f32 on
+     the card against the CPU (F32_TOL) and int8 against bf16 (cosine >
+     DECODER_COS), ms per call; (c) the CLIP RN50 and ViT-B/16 towers at
+     224 and the text encoder, each converted from a reference-named state
+     dict and loaded strictly, f32 on the card against the CPU; (d) the
+     token shuffle forward of ViT-B@448 bf16 against its plain twins and
+     against the identity permutation (TILED_BF16_TOL), 12 attention and
+     12 LN+MLP launches a forward; one {"phase20": ...} JSON line;
 then one JSON line of kernel summaries (launches: the wrapper counts
-summed over the paths of phases 5, 7, 9, 15, 16, 17, 18 and 19), the
+summed over the paths of phases 5, 7, 9, 15, 16, 17, 18, 19 and 20), the
 card's name and power limit, and, last, {"ok": true, "device": ...}.
 
 LAUNCH CHECKS. A kernel wrapper counts its calls where it launches: in an
@@ -241,7 +260,8 @@ read just after), which must equal the calls of the rounds that ran
 eagerly or were captured (`graphs.rounds`), and, from the same run taken
 again under torch.profiler (CUPTI traces each kernel of a replayed graph),
 each hand-written kernel's launches on the card, which must equal its
-calls per round times the rounds.
+calls per round times the rounds (phase 11's sequential run is traced for
+one session of each canvas bucket, 40 of its 420 rounds).
 
     python3 chip_smoke.py --profile
 
@@ -255,15 +275,17 @@ click round of PlainVit ViT-B@448 and of each zoo family at its default
 config the same way (`profile_families`).
 
 For time, the graph-cache workload runs two passes of sessions of 1, 3
-and 10 clicks. On an NVIDIA H100 80GB HBM3 at 700 W the whole script took
-862-985 s of its 1200 s limit, the host moving the phases by 12-17%
-between runs: phase 11's batched evaluation 178-192 s (its work, traced
-again under the profiler and run eagerly), phase 17 121-175 s (its FSDP
-process builds ViT-L twice on the host), phase 18 113-137 s (three CLI
-processes of about 14 s each), phase 19 81-97 s (the gate's six runs
-56-65 s), phase 5 80-92 s (two bench processes), and about 230 s in
-all went to the launch checks' profiler windows. Each phase's seconds
-are logged as it ends, and the last lines print the whole script's.
+and 10 clicks, and phase 11 traces 2 of its sequential run's 21 sessions
+(tracing all 21 cost phase 11 59-62 s of its 197-200 s). On an NVIDIA
+H100 80GB HBM3 at 700 W the whole script took 862-985 s of its 1200 s
+limit with phases 1-19 and 925.7 s with phase 20, the host moving the
+phases by 12-17% between runs: phase 17 121-175 s (its FSDP process
+builds ViT-L twice on the host), phase 18 113-137 s (three CLI processes
+of about 14 s each), phase 11 122-140 s, phase 19 81-97 s (the gate's
+six runs 56-65 s), phase 5 80-92 s (two bench processes), phase 20 about
+20 s, and 185-238 s in all went to the launch checks' profiler windows.
+Each phase's seconds are logged as it ends, and the last lines print the
+whole script's.
 """
 from __future__ import annotations
 
@@ -841,7 +863,8 @@ def _device_launches(fn, attn: str = "fused_attention"):
 
 
 def _launch_checks(fn, per_round, rounds: int, what: str,
-                   attn: str = "fused_attention", traced=None):
+                   attn: str = "fused_attention", traced=None,
+                   sampled: bool = False):
     """The launch checks of a path whose rounds replay captured rounds
     (inference/graphs.py). fn() runs `rounds` rounds, each of which calls
     the wrappers `per_round` ({name: calls}) times. The counters are zeroed
@@ -851,7 +874,9 @@ def _launch_checks(fn, per_round, rounds: int, what: str,
     again under the profiler (`_device_launches`), and each kernel must
     have run per_round x rounds times on the card. `traced`: (callable,
     its rounds) pairs that redo fn()'s work in parts, one profiler window
-    each (default: fn() whole). The profiler loses records now and then
+    each (default: fn() whole); with `sampled` they redo only some of its
+    rounds (a sample of its sessions), and each kernel must have run
+    per_round x those rounds times. The profiler loses records now and then
     (a few rounds' kernels of a window of tens of rounds, late in a run,
     on the H100) and never adds one, so a part's trace that falls short
     of its prediction is taken again, at most TRACE_TRIES times in all:
@@ -869,8 +894,9 @@ def _launch_checks(fn, per_round, rounds: int, what: str,
     called = ran["eager"] + ran["captured"]
     want_calls = {k: per_round.get(k, 0) * called for k in calls}
     names = [w.__name__ for w in _wrappers()]
-    want_device = {k: per_round.get(k, 0) * rounds for k in names}
     parts = traced or [(fn, rounds)]
+    traced_rounds = sum(n for _, n in parts)
+    want_device = {k: per_round.get(k, 0) * traced_rounds for k in names}
     device, retaken = dict.fromkeys(names, 0), 0
     for part, n in parts:
         want = {k: per_round.get(k, 0) * n for k in names}
@@ -883,11 +909,13 @@ def _launch_checks(fn, per_round, rounds: int, what: str,
             device[k] += got[k]
     ok = (calls == want_calls and device == want_device
           and ran["eager"] + ran["replayed"] == rounds
-          and sum(n for _, n in parts) == rounds)
+          and (traced_rounds < rounds if sampled
+               else traced_rounds == rounds))
     _log(f"  {what}: rounds {ran} (of {rounds}); wrapper calls "
          f"{ {k: v for k, v in calls.items() if v} } (eager and captured "
          f"rounds); device launches (torch.profiler, {len(parts)} "
-         f"window(s), {retaken} taken again) "
+         f"window(s){f' over {traced_rounds} of the rounds' if sampled else ''}"
+         f", {retaken} taken again) "
          f"{ {k: v for k, v in device.items() if v} } "
          f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1585,8 +1613,46 @@ def phase_train(dev, card: str):
     return _train_run(dev, card, cfg, seed, plan, TRAIN_BATCH)
 
 
-def _train_run(dev, card, cfg, seed, plan, b):
+def _host_syncs(fn):
+    """fn() under torch's sync debug mode 'warn': {where: syncs}, each
+    warning's innermost frame in the package, else its thread and the
+    warning's own frame (autograd runs a CUDA backward on a thread of its
+    own); phases 9 and 20 count a training step's so."""
+    import threading
+    import traceback
     import warnings
+    import torch
+    syncs = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        stack = traceback.extract_stack()
+        # torch warns once a process as the mode is first set: not a sync
+        if "synchroniz" not in str(message) or any(
+                f.name == "set_sync_debug_mode" for f in stack):
+            return
+        frames = [f for f in stack if "pvpuformer_tpu_torch" in f.filename]
+        where = (f"{frames[-1].filename.split('pvpuformer_tpu_torch/')[-1]}:"
+                 f"{frames[-1].lineno} {frames[-1].name}") if frames else \
+            f"{threading.current_thread().name} {filename}:{lineno} " + \
+            " <- ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                        for f in stack[-8:-1][::-1])
+        syncs[where] = syncs.get(where, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = shown
+    torch.cuda.synchronize()
+    return syncs
+
+
+def _train_run(dev, card, cfg, seed, plan, b):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pvpuformer_tpu_torch.engine import trainer as ttr
@@ -1683,31 +1749,8 @@ def _train_run(dev, card, cfg, seed, plan, b):
     _log(f"  top device kernels (ms, calls, name): "
          f"{json.dumps(sorted(top, reverse=True)[:12])}")
     # one more step under torch's sync debug mode: count the host syncs
-    import traceback
-    syncs = {}
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        frames = [f for f in traceback.extract_stack()
-                  if "pvpuformer_tpu_torch" in f.filename]
-        where = (f"{frames[-1].filename.split('pvpuformer_tpu_torch/')[-1]}:"
-                 f"{frames[-1].lineno} {frames[-1].name}") if frames else \
-            f"{filename}:{lineno}"
-        syncs[where] = syncs.get(where, 0) + 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        shown = warnings.showwarning
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            train_step(model, tx, batch, gen(), thr, cfg=cfg, num_iters=3,
-                       device=dev)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            warnings.showwarning = shown
-    torch.cuda.synchronize()
+    syncs = _host_syncs(lambda: train_step(model, tx, batch, gen(), thr,
+                                           cfg=cfg, num_iters=3, device=dev))
     _log(f"  host syncs in one 3-round step (sync debug mode 'warn'): "
          f"{sum(syncs.values())} {json.dumps(syncs)}")
     return counts
@@ -2002,17 +2045,18 @@ def phase_batched(dev, card: str):
                 for lo_g, hi in zip(bounds, bounds[1:])
                 for lo in range(lo_g, hi, b)]
 
-    def run(label, fn, rounds, traced=None):
+    def run(label, fn, rounds, traced=None, sampled=False):
         """fn() -> (curves, elapsed) of `rounds` rounds, with the launch
         checks of `_launch_checks`."""
         (curves, elapsed), counts, device = _launch_checks(
-            fn, per_round, rounds, label, traced=traced)
+            fn, per_round, rounds, label, traced=traced, sampled=sampled)
         _curves_ok(curves, n_obj, EVAL_CLICKS)
         clicks = sum(map(len, curves))
         res = {"curves": curves, "objects_per_sec": n_obj / elapsed,
                "clicks_per_sec": clicks / elapsed,
                "ms_per_round": elapsed / rounds * 1e3, "rounds": rounds,
-               "launches_per_round": {k: v / rounds
+               "launches_per_round": {k: v / sum(n for _, n in traced)
+                                      if sampled else v / rounds
                                       for k, v in device.items() if v},
                "wrapper_calls": {k: v for k, v in counts.items() if v}}
         _log(f"  {label}: {n_obj} objects, {clicks} clicks in {rounds} "
@@ -2037,9 +2081,11 @@ def phase_batched(dev, card: str):
             _Slice(ds, i, i + 1), _recording_predictor(model, pcfg, dev),
             max_iou_thr=0.95, max_clicks=EVAL_CLICKS),
             len(ds.get_sample(i).objects_ids) * EVAL_CLICKS)
+    # the device launches of the sequential run are read from a trace of
+    # one session of each canvas bucket (the first sample of each part)
     summary = {"sequential": run(
         "sequential", sequential, n_obj * EVAL_CLICKS,
-        [sequential_part(i) for i in range(len(ds))])}
+        [sequential_part(i) for i in bounds[:-1]], sampled=True)}
     seq_clicks = torch.stack(pred.log).cpu()
     side = torch.cuda.Stream()
     for b in EVAL_BATCHES:
@@ -4888,6 +4934,530 @@ def phase_gate_and_reference(dev, card: str):
     return total
 
 
+# phase 20: the last model-side modules (caption co-training, the decoder,
+# the CLIP towers and their converters, the token shuffle)
+CAPTIONS = ["a red box on the left", "the small square", "an object",
+            "the thing in the middle of the picture", "", "a dog",
+            "two shapes that touch", "x" * 100]
+CAPTION_BATCH = 8         # 20a: rows of the ViT-B@448 caption steps
+CAPTION_STEPS = 3         # 20a: steps of CAPTION_ITERS rounds, each way
+CAPTION_ITERS = 3
+# 20a: tiny f32 caption step, card (kernels) against the CPU (plain
+# versions): loss absolute, every gradient of max(max |g|, 1); phase 8's
+CAPTION_TOL = 1e-4
+# 20b / 20c: f32 forwards on the card against the CPU, of the largest
+# magnitude (the same f32 math summed in another order; phase 19b's)
+F32_TOL = 1e-4
+DECODER_COS = 0.98        # 20b: int8 against bf16, JAX's bound
+DECODER_GRID = (28, 28)   # 20b: ViT-B@448's token grid
+TOWER_BATCH = 2           # 20c: images / captions a tower forward
+
+
+def tiny_text():
+    """20a's tiny text tower (tests/test_engine.py:253-291's)."""
+    from pvpuformer_tpu_torch.models.zoo.clip_text import ClipTextConfig
+    return ClipTextConfig(width=32, heads=2, layers=2, context_length=32,
+                          embed_dim=16)
+
+
+def _grads_spy(model, tx, into, take=None):
+    """tx.step wrapped to append take(model) to `into` first (default:
+    every gradient, copied to the CPU)."""
+    step = tx.step
+
+    def cpu_grads(m):
+        return {n: None if p.grad is None else p.grad.detach().cpu()
+                for n, p in m.named_parameters()}
+
+    def spy():
+        into.append((take or cpu_grads)(model))
+        return step()
+    tx.step = spy
+
+
+def phase_caption_parity(dev):
+    """Phase 20a(i): one 2-round f32 caption step (a box round and a click
+    round) of the tiny config with tiny_text(), on the card (kernels) and
+    on the CPU (plain versions), the same weights and draws: the loss and
+    every gradient, those of clip_text and caption_proj among them, within
+    CAPTION_TOL."""
+    import torch
+    from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
+    from pvpuformer_tpu_torch.engine.train_step import TrainConfig, train_step
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
+    from pvpuformer_tpu_torch.models.zoo.clip_text import byte_tokenizer
+
+    cfg = TrainConfig(model=tiny_config().replace(text=tiny_text()))
+    seed = _box_seed(cfg, 2)
+    batch = train_batch(2, 64, 6)
+    batch["captions"] = byte_tokenizer(CAPTIONS[:2], 32)
+    runs = {}
+    for where in ("cpu", dev):
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(1), "cpu")
+        model.to(where)
+        tx = make_optimizer(model, "sgd", lr=5e-5, momentum=0.9)
+        grads = []
+        _grads_spy(model, tx, grads)
+        thr = torch.tensor([0.4, 0.375, 0.425], device=where)
+        logs, _, _ = train_step(model, tx, batch,
+                                torch.Generator().manual_seed(seed), thr,
+                                cfg=cfg, num_iters=2, device=where)
+        runs[str(where)] = (float(logs["loss"]), grads[0])
+    (lc, gc), (lg, gg) = runs["cpu"], runs[str(dev)]
+    if {n for n in gc if gc[n] is None} != {n for n in gg if gg[n] is None}:
+        raise AssertionError("caption parity: different parameters got no "
+                             "gradient")
+    scale = max([1.0] + [float(t.abs().max()) for t in gc.values()
+                         if t is not None])
+    err = max(float((gc[n] - gg[n]).abs().max()) for n in gc
+              if gc[n] is not None)
+    text = {pre: max(float(g.abs().max()) for n, g in gg.items()
+                     if n.startswith(pre) and g is not None)
+            for pre in ("clip_text.", "caption_proj.")}
+    ok = (abs(lc - lg) <= CAPTION_TOL and err <= CAPTION_TOL * scale
+          and all(v > 0 for v in text.values()))
+    _log(f"  20a tiny f32 caption step (2 rounds, a box round), cuda vs "
+         f"cpu: loss {lg} vs {lc} (|d| {abs(lc - lg):.2e}, tol "
+         f"{CAPTION_TOL}), max |dgrad| {err:.2e} (tol {CAPTION_TOL} x "
+         f"{scale:.3g}), largest |grad| of the text tower / caption_proj "
+         f"{text} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("caption parity: CUDA and CPU steps disagree")
+    return {"loss_err": abs(lc - lg), "grad_err": err, "grad_scale": scale}
+
+
+def phase_caption_train(dev, card: str):
+    """Phase 20a(ii): ViT-B@448 bf16 with the default ClipTextConfig()
+    (vocab 49408, context 77, width 512, 8 heads, 12 layers, embed 512),
+    batch CAPTION_BATCH: CAPTION_STEPS steps of CAPTION_ITERS rounds with
+    byte_tokenizer captions, then the same steps without captions. Each
+    round launches the attention forward, its backward and the LN+MLP
+    kernel `depth` times; the host syncs of one more step each way, with
+    captions none more than without. Returns (model, config, wrapper
+    counts, record)."""
+    import torch
+    from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
+    from pvpuformer_tpu_torch.engine.train_step import (TrainConfig,
+                                                        _train_noise,
+                                                        train_step)
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+    from pvpuformer_tpu_torch.models.zoo.clip_text import (ClipTextConfig,
+                                                           byte_tokenizer)
+
+    text = ClipTextConfig()
+    mcfg = vpu_base_config(dtype=torch.bfloat16).replace(text=text)
+    cfg = TrainConfig(model=mcfg)
+    depth, b, ni = mcfg.backbone.depth, CAPTION_BATCH, CAPTION_ITERS
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
+    tx = make_optimizer(model, "adam", lr=5e-5)
+    prefixes = ("clip_text.token_embedding", "clip_text.blocks.0.",
+                "clip_text.blocks.11.", "clip_text.text_projection",
+                "caption_proj.")
+
+    def text_norms(m):
+        """The text tower's gradient norms, on the card (no host copy)."""
+        sq = {pre: [p.grad.float().square().sum()
+                    for n, p in m.named_parameters()
+                    if n.startswith(pre) and p.grad is not None]
+              for pre in prefixes}
+        return {pre: torch.stack(v).sum().sqrt() if v else None
+                for pre, v in sq.items()}
+    grads = []
+    _grads_spy(model, tx, grads, text_norms)
+    batch = train_batch(b, mcfg.backbone.img_size[0], mcfg.num_max_points)
+    caps = byte_tokenizer(CAPTIONS[:b], text.context_length)
+    first = _box_seed(cfg, ni)
+    seeds = [first + i for i in range(CAPTION_STEPS)]
+    types = [_train_noise(cfg, torch.Generator().manual_seed(s), 1, 1, 1,
+                          ni)["prompt_types"] for s in seeds]
+    boxes = sum(t.count(1) for t in types)
+    rounds = CAPTION_STEPS * ni
+    want = {"fused_attention": depth * rounds,
+            "fused_attention_bwd": depth * rounds,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "fused_ln_mlp": depth * rounds, "fused_ln_mlp_bwd": depth * rounds,
+            "minplus_rows": CAPTION_STEPS * (ni - 1),
+            "cc_labels": boxes, "component_max": boxes}
+    thr = torch.tensor([0.4, 0.375, 0.425], device=dev)
+
+    def step(seed, with_caps):
+        bt = dict(batch, captions=caps) if with_caps else batch
+        return train_step(model, tx, bt, torch.Generator().manual_seed(seed),
+                          thr, cfg=cfg, num_iters=ni, device=dev)
+    for with_caps in (True, False):                  # warm-up, each way
+        step(first, with_caps)
+    torch.cuda.synchronize()
+    grads.clear()
+    rec, total = {"types": types, "card": card}, {}
+    for with_caps in (True, False):
+        key = "captions" if with_caps else "no_captions"
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        ms, losses = [], []
+        for s in seeds:
+            t = time.perf_counter()
+            logs, _, _ = step(s, with_caps)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(logs["loss"]))
+        counts = _counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        syncs = _host_syncs(lambda: step(first, with_caps))
+        rec[key] = {"ms_per_step": ms, "losses": losses,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "launches": counts, "host_syncs": syncs}
+        ok = counts == want and np.isfinite(losses).all()
+        _log(f"  20a ViT-B@448 bf16, batch {b}, {CAPTION_STEPS} steps x {ni} "
+             f"rounds {'with' if with_caps else 'without'} captions (prompt "
+             f"types {types}): ms per step {[round(x, 1) for x in ms]}, "
+             f"losses {[round(x, 4) for x in losses]}, peak "
+             f"{rec[key]['peak_gib']:.2f} GiB; launches {counts} (want "
+             f"{want}); host syncs in one more step "
+             f"{sum(syncs.values())} {json.dumps(syncs)} "
+             f"{'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError(f"caption steps ({key}): launches {counts}, "
+                                 f"want {want}; losses {losses}")
+    norms = {pre: [0.0 if g[pre] is None else float(g[pre])
+                   for g in grads[:CAPTION_STEPS]]   # the caption steps
+             for pre in prefixes}
+    rec["text_grad_norms"] = norms
+    more = sum(rec["captions"]["host_syncs"].values()) - \
+        sum(rec["no_captions"]["host_syncs"].values())
+    ok = all(min(v) > 0 for v in norms.values()) and more <= 0
+    _log(f"  20a gradient norms of the text tower, per caption step: "
+         f"{json.dumps({k: [round(x, 6) for x in v] for k, v in norms.items()})}"
+         f"; host syncs with captions minus without: {more} "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("caption steps: a text-tower gradient is zero "
+                             "or captions add a host sync")
+    return model, mcfg, total, rec
+
+
+def phase_decoder(dev, card: str):
+    """Phase 20b: the decoder at DecoderConfig() (3 layers, d 512, 8 heads,
+    ffn 2048) with return_intermediate, vis (2, 784, 512) on the 28 x 28
+    grid and txt (2, 77, 512) (with both flags set, (2, 784, 512): JAX adds
+    the text positions to the threaded vis tokens), in all four forms: f32
+    on the card against the CPU within F32_TOL of the largest magnitude;
+    int8 (`quantize_params`: each packed in-projection one QuantLinear)
+    against bf16 on the card, cosine of the final outputs > DECODER_COS;
+    ms per call of each."""
+    import copy
+    import torch
+    from pvpuformer_tpu_torch import nn
+    from pvpuformer_tpu_torch.models.decoder import (DecoderConfig,
+                                                     decoder_forward,
+                                                     init_decoder)
+    cfg = DecoderConfig(return_intermediate=True)
+    cpu = init_decoder(cfg, torch.Generator().manual_seed(0), "cpu")
+    f32 = copy.deepcopy(cpu).to(dev)
+    bf16 = nn.cast_params(copy.deepcopy(cpu), torch.bfloat16).to(dev)
+    int8 = nn.quantize_params(cpu, dtype=torch.bfloat16).to(dev)
+    r = np.random.default_rng(0)
+    hw = DECODER_GRID[0] * DECODER_GRID[1]
+    vis = torch.from_numpy(r.normal(size=(2, hw, 512)).astype(np.float32))
+    txts = {n: torch.from_numpy(r.normal(size=(2, n, 512)).astype(np.float32))
+            for n in (77, hw)}
+    out = {}
+    for as_text in (False, True):
+        for i2t in (False, True):
+            txt = txts[hw if as_text and i2t else 77]
+            name = f"as_text={as_text} image_to_token={i2t}"
+
+            def run(m, dt):
+                return decoder_forward(m, cfg, vis.to(dev, dt),
+                                       txt.to(dev, dt), DECODER_GRID,
+                                       as_text, i2t)
+            want = decoder_forward(cpu, cfg, vis, txt, DECODER_GRID, as_text,
+                                   i2t)
+            got = run(f32, torch.float32)
+            err = max(float((g.cpu() - w).abs().max())
+                      / max(1e-30, float(w.abs().max()))
+                      for g, w in zip(got, want))
+            fb, fq = run(bf16, torch.bfloat16)[-1], run(int8, torch.bfloat16)[-1]
+            a, q = fb.float().flatten(), fq.float().flatten()
+            cos = float(a @ q / (a.norm() * q.norm()))
+            ms = {k: _time_ms(lambda m=m, dt=dt: run(m, dt), iters=5)
+                  for k, m, dt in (("f32", f32, torch.float32),
+                                   ("bf16", bf16, torch.bfloat16),
+                                   ("int8", int8, torch.bfloat16))}
+            ok = (len(got) == cfg.num_layers and err <= F32_TOL
+                  and cos > DECODER_COS
+                  and all(bool(torch.isfinite(t).all()) for t in (fb, fq)))
+            out[name] = {"f32_err": err, "int8_cos": cos, "ms": ms}
+            _log(f"  20b decoder {name}, txt {tuple(txt.shape)}: f32 cuda vs "
+                 f"cpu {err:.3e} of the largest (tol {F32_TOL}, "
+                 f"{len(got)} intermediates); int8 vs bf16 cosine {cos:.5f} "
+                 f"(> {DECODER_COS}); ms per call "
+                 f"{ {k: round(v, 3) for k, v in ms.items()} } "
+                 f"{'ok' if ok else 'FAIL'} ({card})")
+            if not ok:
+                raise AssertionError(f"decoder {name}: {out[name]}")
+    return out
+
+
+def _normal(r, shape, fan_in=None):
+    """A weight of the given shape at 1 / sqrt(fan_in) (activations stay of
+    order one through the towers)."""
+    fan_in = fan_in or int(np.prod(shape[1:]))
+    return r.normal(0, fan_in ** -0.5, shape).astype(np.float32)
+
+
+def _ref_ln(sd, r, name, c):
+    sd[f"{name}.weight"] = (1 + r.normal(0, 0.1, c)).astype(np.float32)
+    sd[f"{name}.bias"] = r.normal(0, 0.1, c).astype(np.float32)
+
+
+def _ref_block(sd, r, b, w):
+    """CLIP's ResidualAttentionBlock: ln_1, the packed nn.MultiheadAttention
+    in-projection, out_proj, ln_2, mlp c_fc / c_proj."""
+    _ref_ln(sd, r, f"{b}.ln_1", w)
+    sd[f"{b}.attn.in_proj_weight"] = _normal(r, (3 * w, w))
+    sd[f"{b}.attn.in_proj_bias"] = r.normal(0, 0.02, 3 * w).astype(np.float32)
+    sd[f"{b}.attn.out_proj.weight"] = _normal(r, (w, w))
+    sd[f"{b}.attn.out_proj.bias"] = r.normal(0, 0.02, w).astype(np.float32)
+    _ref_ln(sd, r, f"{b}.ln_2", w)
+    sd[f"{b}.mlp.c_fc.weight"] = _normal(r, (4 * w, w))
+    sd[f"{b}.mlp.c_fc.bias"] = r.normal(0, 0.02, 4 * w).astype(np.float32)
+    sd[f"{b}.mlp.c_proj.weight"] = _normal(r, (w, 4 * w))
+    sd[f"{b}.mlp.c_proj.bias"] = r.normal(0, 0.02, w).astype(np.float32)
+
+
+def clip_text_reference_sd(cfg, seed=0):
+    """A made-up CLIP text-encoder state dict (modeling/clip.py:353-456
+    names and shapes; chip_smoke imports nothing of the tests)."""
+    r, w = np.random.default_rng(seed), cfg.width
+    sd = {"token_embedding.weight": r.normal(0, 0.02, (cfg.vocab_size, w))
+          .astype(np.float32),
+          "positional_embedding": r.normal(0, 0.01, (cfg.context_length, w))
+          .astype(np.float32),
+          "text_projection": _normal(r, (w, cfg.embed_dim), w),
+          "logit_scale": np.float32(np.log(1 / 0.07))}
+    for i in range(cfg.layers):
+        _ref_block(sd, r, f"transformer.resblocks.{i}", w)
+    _ref_ln(sd, r, "ln_final", w)
+    return sd
+
+
+def clip_vit_reference_sd(cfg, seed=0):
+    """A made-up CLIP VisionTransformer state dict (clip.py:286-332, under
+    `visual.`)."""
+    r, w = np.random.default_rng(seed), cfg.width
+    grid = cfg.input_resolution // cfg.patch_size
+    p = "visual."
+    sd = {f"{p}conv1.weight": _normal(r, (w, 3, cfg.patch_size,
+                                          cfg.patch_size)),
+          f"{p}class_embedding": r.normal(0, w ** -0.5, w).astype(np.float32),
+          f"{p}positional_embedding": r.normal(
+              0, w ** -0.5, (grid * grid + 1, w)).astype(np.float32),
+          f"{p}proj": _normal(r, (w, cfg.output_dim), w)}
+    _ref_ln(sd, r, f"{p}ln_pre", w)
+    for i in range(cfg.layers):
+        _ref_block(sd, r, f"{p}transformer.resblocks.{i}", w)
+    _ref_ln(sd, r, f"{p}ln_post", w)
+    return sd
+
+
+def clip_resnet_reference_sd(cfg, seed=0):
+    """A made-up CLIP ModifiedResNet state dict (clip.py:147-223; the
+    attention pool with its conv + BN `connect` residual), no prefix."""
+    r, w, ed = np.random.default_rng(seed), cfg.width, cfg.embed_dim
+    sd = {}
+
+    def conv_bn(conv, bn, cin, cout, k=1):
+        sd[f"{conv}.weight"] = _normal(r, (cout, cin, k, k))
+        sd[f"{bn}.weight"] = (1 + r.normal(0, 0.1, cout)).astype(np.float32)
+        sd[f"{bn}.bias"] = r.normal(0, 0.1, cout).astype(np.float32)
+        sd[f"{bn}.running_mean"] = r.normal(0, 0.1, cout).astype(np.float32)
+        sd[f"{bn}.running_var"] = r.uniform(0.5, 2, cout).astype(np.float32)
+
+    def lin(name, i, o):
+        sd[f"{name}.weight"] = _normal(r, (o, i))
+        sd[f"{name}.bias"] = r.normal(0, 0.02, o).astype(np.float32)
+
+    conv_bn("conv1", "bn1", 3, w // 2, 3)
+    conv_bn("conv2", "bn2", w // 2, w // 2, 3)
+    conv_bn("conv3", "bn3", w // 2, w, 3)
+    cin = w
+    for li, (blocks, mult) in enumerate(zip(cfg.layers, (1, 2, 4, 8))):
+        planes = w * mult
+        for j in range(blocks):
+            b = f"layer{li + 1}.{j}"
+            conv_bn(f"{b}.conv1", f"{b}.bn1", cin, planes)
+            conv_bn(f"{b}.conv2", f"{b}.bn2", planes, planes, 3)
+            conv_bn(f"{b}.conv3", f"{b}.bn3", planes, planes * 4)
+            if j == 0:
+                conv_bn(f"{b}.downsample.0", f"{b}.downsample.1", cin,
+                        planes * 4)
+            cin = planes * 4
+    sd["attnpool.positional_embedding"] = r.normal(
+        0, ed ** -0.5, (cfg.spacial_dim ** 2 + 1, ed)).astype(np.float32)
+    for n in ("q", "k", "v"):
+        lin(f"attnpool.{n}_proj", ed, ed)
+    lin("attnpool.c_proj", ed, cfg.output_dim)
+    conv_bn("attnpool.connect.0", "attnpool.connect.1", ed, cfg.output_dim)
+    return sd
+
+
+def phase_clip(dev, card: str):
+    """Phase 20c: the CLIP towers at their default widths, built by the
+    converters from reference-named state dicts (`convert_clip_resnet`,
+    `convert_clip_vit`, `convert_clip_text`) and loaded strictly
+    (`load_clip`: every converted leaf in the module bit for bit), f32 on
+    the card against the CPU within F32_TOL of the largest magnitude: RN50
+    at 224 (`ClipVisualConfig()`: x2, x3 and the attention-pooled x4),
+    ViT-B/16 at 224 (`ClipViTConfig()`) and the text encoder
+    (`ClipTextConfig()`) on byte_tokenizer captions; ms per call."""
+    import copy
+    import torch
+    from pvpuformer_tpu_torch import nn
+    from pvpuformer_tpu_torch.models.zoo import clip_text as C
+    from pvpuformer_tpu_torch.utils import torch_ingest as ti
+    from pvpuformer_tpu_torch.utils.serialization import (flatten_tree,
+                                                          params_from_numpy)
+    nn.resolve_device(dev)                 # full-f32 convs on the card
+    r = np.random.default_rng(1)
+    images = torch.from_numpy(r.normal(size=(TOWER_BATCH, 224, 224, 3))
+                              .astype(np.float32))
+    text = C.ClipTextConfig()
+    tokens = torch.from_numpy(C.byte_tokenizer(CAPTIONS[:TOWER_BATCH],
+                                               text.context_length))
+    cases = (("RN50", C.ClipVisualConfig(), clip_resnet_reference_sd,
+              ti.convert_clip_resnet, C.encode_image_resnet, images),
+             ("ViT-B/16", C.ClipViTConfig(), clip_vit_reference_sd,
+              ti.convert_clip_vit, C.encode_image_vit, images),
+             ("text", text, clip_text_reference_sd, ti.convert_clip_text,
+              C.encode_text, tokens))
+    out = {}
+    for name, cfg, make_sd, convert, encode, x in cases:
+        tree = convert(make_sd(cfg), cfg)
+        module = ti.load_clip(tree, cfg)
+        state = module.state_dict()
+        flat = params_from_numpy(flatten_tree(tree))
+        same = set(state) == set(flat) and all(
+            torch.equal(state[k], v) for k, v in flat.items())
+        gpu = copy.deepcopy(module).to(dev)
+        want = encode(module, cfg, x)
+        got = encode(gpu, cfg, x.to(dev))
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(float((g.cpu() - w).abs().max())
+                  / max(1e-30, float(w.abs().max())) for g, w in zip(got, want))
+        ms = _time_ms(lambda: encode(gpu, cfg, x.to(dev)), iters=5)
+        ok = same and err <= F32_TOL and all(
+            bool(torch.isfinite(g).all()) for g in got)
+        out[name] = {"f32_err": err, "ms": ms,
+                     "shapes": [list(g.shape) for g in got],
+                     "leaves": len(flat)}
+        _log(f"  20c CLIP {name}: converted from a reference-named state "
+             f"dict, {len(flat)} leaves loaded strictly "
+             f"{'bit for bit' if same else 'DIFFER'}; f32 cuda vs cpu "
+             f"{err:.3e} of the largest (tol {F32_TOL}), outputs "
+             f"{out[name]['shapes']}, {ms:.3f} ms per call on the card "
+             f"{'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError(f"CLIP {name}: {out[name]}")
+    return out
+
+
+def phase_shuffle(dev, card: str, model, mcfg):
+    """Phase 20d: the token shuffle forward of ViT-B@448 bf16 (20a's model,
+    batch CAPTION_BATCH, no captions): every block global on tokens
+    gathered by its noise's stable argsort, so each forward launches the
+    attention and LN+MLP kernels `depth` times; against the same forward
+    with their plain twins patched into `models.vit` on the card
+    (`_plain_twins`, no launch), and random noise against sorted noise
+    (the identity permutation: attention is equivariant under a
+    permutation of the tokens), each within TILED_BF16_TOL of max(1, the
+    largest |logit|)."""
+    import torch
+    from pvpuformer_tpu_torch.models.vit import shuffle_noise
+    from pvpuformer_tpu_torch.models.vpu import vpu_forward
+    depth, b = mcfg.backbone.depth, CAPTION_BATCH
+    batch = train_batch(b, mcfg.backbone.img_size[0], mcfg.num_max_points)
+    img = torch.cat([torch.from_numpy(batch["image"]),
+                     torch.zeros(b, *batch["image"].shape[1:3], 1)], -1)
+    img, pts = img.to(dev), torch.from_numpy(batch["points"]).to(dev)
+    noise = shuffle_noise(mcfg.backbone, torch.Generator().manual_seed(0),
+                          b).to(dev)
+    n = mcfg.backbone.num_patches
+    ident = (torch.arange(n, device=dev) / n).expand(depth, b, n)
+
+    def fwd(nz):
+        with torch.no_grad():
+            return vpu_forward(model, mcfg, img, pts,
+                               shuffle_noise=nz)["instances"].float()
+    fwd(noise)
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = fwd(noise)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {"fused_attention": depth, "fused_ln_mlp": depth}
+    _round_counts([counts], want, "shuffle forward")
+    _zero_counts()
+    with _plain_twins():
+        plain = fwd(noise)
+    torch.cuda.synchronize()
+    _round_counts([_counts()], {}, "shuffle forward, plain twins")
+    same = fwd(ident)
+    scale = max(1.0, float(plain.abs().max()))
+    err_plain = float((got - plain).abs().max()) / scale
+    err_perm = float((got - same).abs().max()) / max(
+        1.0, float(same.abs().max()))
+    ms = {"shuffle": _time_ms(lambda: fwd(noise), iters=5),
+          "windowed (no noise)": _time_ms(lambda: fwd(None), iters=5)}
+    ok = (bool(torch.isfinite(got).all()) and err_plain <= TILED_BF16_TOL
+          and err_perm <= TILED_BF16_TOL)
+    _log(f"  20d shuffle forward ViT-B@448 bf16, batch {b}: launches "
+         f"{ {k: v for k, v in counts.items() if v} } (want {want}); "
+         f"kernels vs plain twins {err_plain:.4e}, random vs sorted noise "
+         f"{err_perm:.4e} of max(1, the largest |logit|) (limit "
+         f"{TILED_BF16_TOL}); ms per forward "
+         f"{ {k: round(v, 2) for k, v in ms.items()} } "
+         f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"shuffle forward: {err_plain}, {err_perm}")
+    return counts, {"vs_plain": err_plain, "vs_identity": err_perm,
+                    "ms": ms, "launches": counts}
+
+
+def phase_models(dev, card: str):
+    """Phase 20: (a) caption co-training, (b) the decoder, (c) the CLIP
+    towers and converters, (d) the token shuffle; prints one
+    {"phase20": ...} JSON line and returns the wrapper counts."""
+    import torch
+    t0 = time.perf_counter()
+    times, rec = {}, {"card": card}
+    rec["caption_parity"] = phase_caption_parity(dev)
+    times["20a_parity"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    model, mcfg, total, rec["caption_steps"] = phase_caption_train(dev, card)
+    times["20a_steps"] = time.perf_counter() - t
+    t = time.perf_counter()
+    counts, rec["shuffle"] = phase_shuffle(dev, card, model, mcfg)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    times["20d"] = time.perf_counter() - t
+    del model
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec["decoder"] = phase_decoder(dev, card)
+    times["20b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["clip"] = phase_clip(dev, card)
+    times["20c"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    rec["seconds"] = dict(times, whole=time.perf_counter() - t0)
+    rec["launches"] = total
+    print(json.dumps({"phase20": rec}), flush=True)
+    _log(f"  phase 20: {rec['seconds']['whole']:.1f} s "
+         f"{ {k: round(v, 1) for k, v in times.items()} } ({card})")
+    return total
+
 
 def _timed(phase, *args):
     """phase(*args), its wall time logged (the script's time budget)."""
@@ -4913,7 +5483,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/19] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/20] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -4925,7 +5495,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/19] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/20] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler, then "
              "PlainVit and the zoo families")
@@ -4936,50 +5506,50 @@ def main() -> int:
                           "card": smi}))
         return 0
 
-    _log("[3/19] kernels vs plain versions")
+    _log("[3/20] kernels vs plain versions")
     res = _timed(phase_kernels, dev)
-    _log("[4/19] model parity, tiny config f32")
+    _log("[4/20] model parity, tiny config f32")
     _timed(phase_parity, dev)
-    _log("[5/19] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/20] main path: ViT-B@448 bf16 click sessions")
     launches, model = _timed(phase_main, dev, smi)
-    _log("[6/19] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/20] prompt parity, tiny config f32, four prompt variants")
     _timed(phase_prompt_parity, dev)
-    _log("[7/19] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/20] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = _timed(phase_prompts, dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     graphs.clear()                  # the captured rounds' memory
     torch.cuda.empty_cache()
-    _log("[8/19] training parity, tiny config f32")
+    _log("[8/20] training parity, tiny config f32")
     _timed(phase_train_parity, dev)
-    _log("[9/19] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/20] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = _timed(phase_train, dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/19] evaluation parity, tiny config f32: sequential and "
+    _log("[10/20] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
     _timed(phase_eval_parity, dev)
-    _log("[11/19] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _log("[11/20] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     _timed(phase_batched, dev, smi)
     torch.cuda.empty_cache()
     _timed(phase_graph_cache, dev, smi)
-    _log("[12/19] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _log("[12/20] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     _timed(phase_presets, dev, smi)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[13/19] the training entry point: the tiny recipe and the "
+    _log("[13/20] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
          "shipped recipe through the data pipeline")
     _timed(phase_entry, dev)
     _timed(phase_recipe, dev, smi)
     torch.cuda.empty_cache()
-    _log("[14/19] serving parity, tiny config f32: controller, int8 and BRS "
+    _log("[14/20] serving parity, tiny config f32: controller, int8 and BRS "
          "sessions, CUDA vs the CPU")
     _timed(phase_serving_parity, dev)
-    _log("[15/19] serving at ViT-B@448 bf16: the HTTP service, the demo, "
+    _log("[15/20] serving at ViT-B@448 bf16: the HTTP service, the demo, "
          "user clicks (bf16 and int8), f-BRS-B and RGB-BRS")
     serving = _timed(phase_serving, dev, smi)
     for name in ("fused_attention", "fused_attention_bwd", "minplus_rows",
@@ -4987,14 +5557,14 @@ def main() -> int:
         launches[name] += serving.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[16/19] model families: PlainVit ViT-B@448 and the zoo at their "
+    _log("[16/20] model families: PlainVit ViT-B@448 and the zoo at their "
          "default configs, bf16; tiny f32 parity")
     families = _timed(phase_families, dev, smi)
     for name in launches:
         launches[name] += families.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[17/19] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
+    _log("[17/20] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
          "training and sharded batched evaluation), FSDP at world size 1 "
          "under NCCL (the ViT-L recipe), evaluate --eval-mesh 1")
     scale = _timed(phase_scaleout, dev, smi)
@@ -5002,7 +5572,7 @@ def main() -> int:
         launches[name] += scale.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[18/19] the evaluation CLI's protocols: the launcher's command, "
+    _log("[18/20] the evaluation CLI's protocols: the launcher's command, "
          "--profile and --vis-preds as processes; the CFR cascade, "
          "--eval-ritm and --eval-mode fixed448,672 sessions at ViT-B@448 "
          "bf16")
@@ -5011,12 +5581,21 @@ def main() -> int:
         launches[name] += cli_launches.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[19/19] the int8 accuracy gate at the ViT-B/L/H widths (random "
+    _log("[19/20] the int8 accuracy gate at the ViT-B/L/H widths (random "
          "and trained weights) and reference checkpoints: the ViT-B@448 "
          "VPU and HRNet-18s from reference-named .pth files")
     gate_launches = _timed(phase_gate_and_reference, dev, smi)
     for name in launches:
         launches[name] += gate_launches.get(name, 0)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    _log("[20/20] the last model-side modules: caption co-training at "
+         "ViT-B@448 bf16 with the CLIP text tower, the vision-language "
+         "decoder (f32, bf16, int8), the CLIP towers from their "
+         "converters, the token shuffle forward")
+    model_launches = _timed(phase_models, dev, smi)
+    for name in launches:
+        launches[name] += model_launches.get(name, 0)
     _log(f"whole script: {time.perf_counter() - t_script:.1f} s, of which "
          f"{TRACE_COST['seconds']:.1f} s in {TRACE_COST['windows']} "
          f"profiler windows (this process's launch checks, the traced "

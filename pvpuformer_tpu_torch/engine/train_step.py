@@ -10,7 +10,10 @@ the caller); each round
      touching the points (trainer.py:369-376);
   3. forwards (image ++ detached prev mask) with the PPuE prompts of the
      round's type (`vpu_forward`; JAX traces the type and computes every
-     variant, a host int needs only the one it selects);
+     variant, a host int needs only the one it selects), and with the
+     batch's `captions` (B, context_length) token ids where it has them
+     (caption co-training: the text tower runs inside every round's
+     forward, so each round's backward reaches it and frees its graph);
   4. sums NFL * w + Dice * w + 2 * BCE(P2CL, ed mask) * w, w =
      iterloss_weights[round] (trainer.py:399-419), and runs that round's
      backward at once: the gradients accumulate in `.grad`;
@@ -171,6 +174,7 @@ def _iterloss_loop(p: VPUModel, cfg: TrainConfig,
     with_grads=True: each round runs its own backward into `.grad` and the
     returned total is detached."""
     image = batch["image"]
+    captions = batch.get("captions")
     gt = batch["instances"].float()
     points = batch["points"].float()
     scribbles = batch["scribbles"].float()
@@ -214,7 +218,7 @@ def _iterloss_loop(p: VPUModel, cfg: TrainConfig,
     for k in range(num_iters):
         net_input = torch.cat([image, prev.to(image.dtype)], -1)
         out = p(net_input, points, boxes.float(), scr, prompt_type,
-                cfg=cfg.model)
+                cfg=cfg.model, captions=captions)
         round_total = _round_losses(cfg, out, gt, ed_mask,
                                     cfg.iterloss_weights[k], logs, k)
         instances = out["instances"].detach()
@@ -255,7 +259,8 @@ def _itermask_forward(p: VPUModel, cfg: TrainConfig, image, gt, points,
                       prev, noise, num_iters: int):
     """RITM iter-mask branch (trainer.py:459-491): num_iters click rounds
     without gradients, then one supervised forward on the final state;
-    loss = NFL + Dice."""
+    loss = NFL + Dice. Captions are not read here, as in JAX
+    (train_step.py:307-318 forwards without them)."""
     for i in range(num_iters):
         with torch.no_grad():
             net_input = torch.cat([image, prev.to(image.dtype)], -1)
@@ -295,8 +300,9 @@ def iterloss_forward(p: VPUModel, cfg: TrainConfig,
                      num_iters: int):
     """Loss + aux of one batch as one differentiable graph (no backward
     inside). batch: image (B, H, W, 3) in [0, 1], instances (B, H, W, 1),
-    points (B, 2N, 3), scribbles (B, S, 2), scribble_rects (B, 4), on the
-    model's device; `noise` from `_train_noise` on that device."""
+    points (B, 2N, 3), scribbles (B, S, 2), scribble_rects (B, 4), and
+    optionally captions (B, context_length) int token ids, on the model's
+    device; `noise` from `_train_noise` on that device."""
     return _iterloss_loop(p, cfg, batch, noise, num_iters, with_grads=False)
 
 

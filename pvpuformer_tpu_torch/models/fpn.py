@@ -92,16 +92,27 @@ def _down32(p, x):
 
 
 def neck_forward(p: Neck, cfg: NeckConfig, x: torch.Tensor, q: torch.Tensor,
-                 grid_hw: Tuple[int, int]
+                 grid_hw: Tuple[int, int],
+                 extra_queries: Optional[torch.Tensor] = None
                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """x (B, HW, C) backbone tokens; q (B, L, 2W+3) PPuE prompt vectors.
+    `extra_queries` (B, K, C), the projected caption embeddings, join the
+    query stream after the prompt FFN: they ride the two-way attention, and
+    the channel gates' max over the queries takes them in; they are
+    stripped from q_out only, so the P2CL head keeps its 2N click channels.
     Returns ([s4, s8, s16, s32] NHWC maps, q_out (B, L, C))."""
     if q.shape[-1] != x.shape[-1]:
         q = nn.mlp(p.ffn, q.to(x.dtype), act=torch.relu)
+    n_extra = 0
+    if extra_queries is not None:
+        n_extra = extra_queries.shape[1]
+        q = torch.cat([q, extra_queries.to(q.dtype)], 1)
     b, n, c = x.shape
     (q_x2, x2_q), (q_x3, x3_q), (q_x4, x4_q) = two_way_forward(
         p.att, cfg.two_way, q, x)
     q_out = q + q_x2 + q_x3 + q_x4
+    if n_extra:
+        q_out = q_out[:, :-n_extra]
 
     def gate(qi, ki):
         chan = torch.sigmoid(qi.amax(1))[:, None, :]     # (B, 1, C)

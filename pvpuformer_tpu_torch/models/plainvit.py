@@ -53,9 +53,6 @@ class PlainVitModel(tnn.Module):
     def __init__(self, cfg: PlainVitConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.random_split:
-            raise NotImplementedError("random_split (token shuffle) is a "
-                                      "training mode and is not ported")
         g = generator
         self.cfg = cfg
         self.backbone = ViT(cfg.backbone, g)
@@ -83,10 +80,14 @@ def init_plainvit(cfg: PlainVitConfig, generator: torch.Generator,
 def plainvit_forward(p: PlainVitModel, cfg: PlainVitConfig,
                      image: torch.Tensor, points: torch.Tensor,
                      coord_bias: Optional[torch.Tensor] = None,
+                     shuffle_noise: Optional[torch.Tensor] = None,
                      **_) -> Dict[str, Optional[torch.Tensor]]:
     """image (B, H, W, 3|4), points (B, 2N, 3) -> {"instances": (B, H, W, 1)
     logits, "instances_aux": None}. Prompt keywords (boxes, scribbles,
-    prompt_type, ppue_points) are accepted and ignored, as in JAX."""
+    prompt_type, ppue_points) are accepted and ignored, as in JAX.
+    `shuffle_noise` (depth, B, N) runs the token shuffle mode
+    (models/vit.py); `cfg.random_split` is read and otherwise inert, as in
+    JAX."""
     image = image.to(cfg.dtype)
     rgb, prev_mask = prepare_input(p, cfg, image)
     h, w = rgb.shape[1], rgb.shape[2]
@@ -98,7 +99,7 @@ def plainvit_forward(p: PlainVitModel, cfg: PlainVitConfig,
         else disks
     add = nn.patch_embed(p.patch_embed_coords, coords, cfg.backbone.patch_size)
     tokens = vit_backbone_forward(p.backbone, cfg.backbone, rgb,
-                                  additional=add)
+                                  additional=add, shuffle_noise=shuffle_noise)
     b, _, c = tokens.shape
     gh, gw = cfg.backbone.grid_size
     fmap = tokens.reshape(b, gh, gw, c)

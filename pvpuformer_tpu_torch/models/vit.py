@@ -150,17 +150,42 @@ def _unpatchify(x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(bw // (wh * ww), wh * ww * n, c)
 
 
+def shuffle_noise(cfg: ViTConfig, gen: torch.Generator,
+                  b: int) -> torch.Tensor:
+    """The token shuffle's draws, (depth, B, N) uniforms, on the host from
+    the CPU generator `gen` (JAX draws block i's from the i-th split of its
+    `shuffle_key`; torch cannot reproduce those, so a test hands the port
+    JAX's own)."""
+    return torch.rand((cfg.depth, b, cfg.num_patches), generator=gen)
+
+
 def vit_backbone_forward(p: ViT, cfg: ViTConfig, x_patches: torch.Tensor,
-                         additional: Optional[torch.Tensor] = None
+                         additional: Optional[torch.Tensor] = None,
+                         shuffle_noise: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """`forward_backbone` (models_vit.py:257-287): (B, H, W, C) image ->
-    (B, N, D) tokens; `additional` (B, N, D) is added before pos_embed."""
+    (B, N, D) tokens; `additional` (B, N, D) is added before pos_embed.
+
+    With `shuffle_noise` ((depth, B, N) uniforms, `shuffle_noise()`), the
+    random shuffle mode (models_vit.py:193-222): every block runs global
+    attention over the tokens gathered by a stable argsort of its noise
+    and scattered back by the inverse permutation; no block is windowed."""
     x = nn.patch_embed(p.patch_embed, x_patches, cfg.patch_size)
     if additional is not None:
         x = x + additional
     x = x + p.pos_embed[:, 1:].to(x.dtype)
     if cfg.depth % 4:
         raise ValueError(f"ViT depth must be a multiple of 4, got {cfg.depth}")
+    if shuffle_noise is not None:
+        b, n, c = x.shape
+        for i in range(cfg.depth):
+            ids = torch.argsort(shuffle_noise[i], dim=1, stable=True)
+            xs = x.gather(1, ids[:, :, None].expand(b, n, c))
+            xs = p.blocks[i](xs, cfg.num_heads, cfg.ln_eps, cfg.attn_impl,
+                             cfg.ln_f32)
+            x = torch.empty_like(xs).scatter_(
+                1, ids[:, :, None].expand(b, n, c), xs)
+        return x
     nbpg = cfg.blocks_per_group
     patched = False
     for i in range(1, cfg.depth + 1):

@@ -1,5 +1,6 @@
 """The VPU model: ViT backbone + PPuE prompts + DMA neck + SegFormer head
-(pvpuformer_tpu/models/vpu.py), click, box and scribble prompts.
+(pvpuformer_tpu/models/vpu.py), click, box and scribble prompts, with the
+optional CLIP text tower of caption co-training.
 
 forward(image (B, H, W, 4), points (B, 2N, 3), [boxes / scribbles],
 prompt_type):
@@ -10,6 +11,13 @@ prompt_type):
   4. PPuE prompt vectors by type; DMA neck -> multi-scale features + q_out;
      head;
   5. bilinear align_corners=True upsample to the input size.
+
+Caption co-training (`VPUConfig.text`, a `ClipTextConfig`): the model
+carries `clip_text` and `caption_proj` (text embed_dim -> neck width), and
+`captions` (B, context_length) token ids enter the neck as one extra DMA
+query each (`caption_queries`). `random_split` is read and otherwise
+inert, as in JAX: the token shuffle runs where a caller passes
+`shuffle_noise` (models/vit.py).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from .fpn import Neck, NeckConfig, neck_forward
 from .seg_head import Head, HeadConfig, head_forward
 from .two_way import TwoWayConfig
 from .vit import ViT, ViTConfig, vit_backbone_forward
+from .zoo.clip_text import ClipText, encode_text
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -38,7 +47,7 @@ class VPUConfig:
     backbone: ViTConfig = ViTConfig()
     neck: NeckConfig = NeckConfig()
     head: HeadConfig = HeadConfig()
-    text: Optional[Any] = None           # caption tower: not ported
+    text: Optional[Any] = None           # zoo.clip_text.ClipTextConfig
     num_max_points: int = 24
     norm_radius: float = 5.0
     use_disks: bool = True
@@ -100,17 +109,12 @@ class VPUModel(tnn.Module):
     """Parameters with the JAX `init_vpu` tree (state_dict names map 1:1 onto
     the JAX checkpoint names), including the leaves the forward does not use
     (pe_gaussian, point_embeddings, not_a_point_embed, head_aux) so that a
-    checkpoint loads strictly. `generator=None` leaves every weight zero (for
-    loading)."""
+    checkpoint loads strictly, and, with `cfg.text`, the text tower
+    `clip_text` and `caption_proj`. `generator=None` leaves every weight
+    zero (for loading)."""
 
     def __init__(self, cfg: VPUConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.text is not None:
-            raise NotImplementedError("caption co-training (VPUConfig.text) is "
-                                      "not ported")
-        if cfg.random_split:
-            raise NotImplementedError("random_split (token shuffle) is a "
-                                      "training mode and is not ported")
         g = generator
         self.cfg = cfg
         d = cfg.backbone.embed_dim
@@ -125,6 +129,10 @@ class VPUModel(tnn.Module):
         self.not_a_point_embed = nn.param(nn.normal_init((1, d), g, std=1.0))
         if cfg.with_aux_output:
             self.head_aux = nn.Conv(1, 1, 128, 1, g)
+        if cfg.text is not None:
+            self.clip_text = ClipText(cfg.text, g)
+            self.caption_proj = nn.Linear(cfg.text.embed_dim,
+                                          cfg.neck.in_dim, g=g)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD),
@@ -135,14 +143,17 @@ class VPUModel(tnn.Module):
                 scribbles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 prompt_type: int = 0,
                 ppue_points: Optional[torch.Tensor] = None,
-                cfg: Optional[VPUConfig] = None
+                cfg: Optional[VPUConfig] = None,
+                captions: Optional[torch.Tensor] = None,
+                shuffle_noise: Optional[torch.Tensor] = None
                 ) -> Dict[str, Optional[torch.Tensor]]:
         """`vpu_forward` (the definition) through the module's call, where
         FSDP gathers the root's sharded parameters; `cfg` (default: the
         model's) may change the compute dtype, as the training config's
         does."""
         return vpu_forward(self, self.cfg if cfg is None else cfg, image,
-                           points, boxes, scribbles, prompt_type, ppue_points)
+                           points, boxes, scribbles, prompt_type, ppue_points,
+                           captions=captions, shuffle_noise=shuffle_noise)
 
 
 def init_vpu(cfg: VPUConfig, generator: torch.Generator,
@@ -192,13 +203,29 @@ def coord_features(cfg: VPUConfig, image: torch.Tensor, prev_mask,
     return disks
 
 
+def caption_queries(p: VPUModel, cfg: VPUConfig,
+                    captions: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+    """(B, context_length) caption token ids -> (B, 1, neck width) extra DMA
+    queries: the CLIP text embedding (in the tower's parameter dtype)
+    through `caption_proj` in the compute dtype. None without a text tower
+    or without captions."""
+    if captions is None or cfg.text is None:
+        return None
+    emb = encode_text(p.clip_text, cfg.text, captions)
+    return nn.linear(p.caption_proj, emb.to(cfg.dtype))[:, None]
+
+
 def vpu_backbone_embed(p: VPUModel, cfg: VPUConfig, rgb: torch.Tensor,
-                       coords: torch.Tensor) -> torch.Tensor:
+                       coords: torch.Tensor,
+                       shuffle_noise: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Image + coord patch embeddings through the ViT (is_vpu_model.py:
     385-386): (B, H, W, 3) normalized rgb, (B, H, W, 3) coords -> (B, N, D)
-    tokens."""
+    tokens; `shuffle_noise` as in `vit_backbone_forward`."""
     add = nn.patch_embed(p.patch_embed_coords, coords, cfg.backbone.patch_size)
-    return vit_backbone_forward(p.backbone, cfg.backbone, rgb, additional=add)
+    return vit_backbone_forward(p.backbone, cfg.backbone, rgb, additional=add,
+                                shuffle_noise=shuffle_noise)
 
 
 def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
@@ -206,7 +233,9 @@ def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
                 scribbles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 prompt_type: int = 0,
                 ppue_points: Optional[torch.Tensor] = None,
-                coord_bias: Optional[torch.Tensor] = None
+                coord_bias: Optional[torch.Tensor] = None,
+                captions: Optional[torch.Tensor] = None,
+                shuffle_noise: Optional[torch.Tensor] = None
                 ) -> Dict[str, Optional[torch.Tensor]]:
     """Returns {"instances": (B, H, W, 1) logits, "instances_aux":
     (B, H, W, 2*num_max_points) P2CL maps}. `prompt_type` (0 click, 1 box,
@@ -214,12 +243,14 @@ def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
     ((B, 1, S, 2), (B, 1, 4)) as in the JAX package. `ppue_points`
     replaces the clicks fed to the PPuE encoders only (the disks keep
     `points`): the prompt session's extra error click. `coord_bias`
-    (B, H, W, 2) perturbs the disk channels (DistMap-BRS)."""
+    (B, H, W, 2) perturbs the disk channels (DistMap-BRS). `captions`
+    (B, context_length) token ids feed the text tower (`caption_queries`);
+    `shuffle_noise` (depth, B, N) runs the token shuffle mode."""
     image = image.to(cfg.dtype)
     rgb, prev_mask = prepare_input(p, cfg, image)
     coords = coord_features(cfg, rgb, prev_mask, points, boxes, scribbles,
                             prompt_type, coord_bias)
-    tokens = vpu_backbone_embed(p, cfg, rgb, coords)
+    tokens = vpu_backbone_embed(p, cfg, rgb, coords, shuffle_noise)
     ppts = points if ppue_points is None else ppue_points
     if prompt_type == 0:
         pv = ppue_click(ppts, cfg.ppue, num_max_points=cfg.num_max_points)
@@ -229,7 +260,8 @@ def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
         pv = ppue_scribble(ppts, scribbles[0][:, 0], scribbles[1][:, 0],
                            cfg.ppue, num_max_points=cfg.num_max_points)
     ms_feats, q_out = neck_forward(p.neck, cfg.neck, tokens, pv.to(cfg.dtype),
-                                   cfg.backbone.grid_size)
+                                   cfg.backbone.grid_size,
+                                   caption_queries(p, cfg, captions))
     seg, pcl = head_forward(p.head, cfg.head, ms_feats, q_out)
     h, w = image.shape[1], image.shape[2]
     aux = None

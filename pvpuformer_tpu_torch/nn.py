@@ -321,6 +321,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's QuickGELU, x * sigmoid(1.702 x) (JAX `nn.quick_gelu`)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 def mlp(p, x: torch.Tensor, act: Callable = gelu) -> torch.Tensor:
     return linear(p.fc2, act(linear(p.fc1, x)))
 
@@ -407,7 +412,8 @@ def patch_embed(p, x: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
     if isinstance(p, QuantLinear):         # an int8-quantized patch embed
         return linear_int8(p, x)
     w = p.w.reshape(ph * pw * c, -1)        # (ph*pw*c, D) or HWIO
-    return x @ w.to(x.dtype) + p.b.to(x.dtype)
+    y = x @ w.to(x.dtype)
+    return y if p.b is None else y + p.b.to(x.dtype)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

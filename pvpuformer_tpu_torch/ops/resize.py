@@ -5,9 +5,11 @@ Static-shape resizes apply two dense interpolation matrices (bf16 inputs
 interpolate in bf16 with f32 accumulation, as in JAX). The zoom-in crop and
 paste-back take the ROI as a device tensor (rmin, rmax, cmin, cmax),
 inclusive, and sample with gathers, so a click needs no host round trip.
+`_bicubic_axis_matrix` is the host-side bicubic of CLIP's attention pool.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -118,3 +120,26 @@ def roi_paste_back(probs: torch.Tensor, roi: torch.Tensor, canvas_h: int,
                      sx - x0.float())
     out = torch.where(inside[..., None], out, 0.0)
     return out.to(probs.dtype)
+
+
+def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    ax = np.abs(x)
+    return np.where(
+        ax <= 1.0, ((a + 2) * ax - (a + 3)) * ax * ax + 1,
+        np.where(ax < 2.0, (((ax - 5) * ax + 8) * ax - 4) * a, 0.0))
+
+
+def _bicubic_axis_matrix(src: int, dst: int) -> np.ndarray:
+    """torch bicubic align_corners=False (dst, src) axis matrix with clamped
+    taps, computed in f64 on the host and returned as f32
+    (pvpuformer_tpu/ops/resize.py:182)."""
+    m = np.zeros((dst, src), dtype=np.float64)
+    for i in range(dst):
+        x = (i + 0.5) * src / dst - 0.5
+        x0 = int(np.floor(x))
+        t = x - x0
+        taps = np.array([x0 - 1, x0, x0 + 1, x0 + 2])
+        wts = _cubic_kernel(np.array([t + 1, t, 1 - t, 2 - t]))
+        for tap, wt in zip(taps, wts):
+            m[i, int(np.clip(tap, 0, src - 1))] += wt
+    return m.astype(np.float32)

@@ -40,9 +40,12 @@ def _registry() -> Dict[str, Any]:
     from ..models.two_way import TwoWayConfig
     from ..models.vit import ViTConfig
     from ..models.registry import CONFIGS
+    from ..models.zoo.clip_text import (ClipTextConfig, ClipViTConfig,
+                                        ClipVisualConfig)
     from ..ops.ppue import PPuEConfig
     classes = [ViTConfig, TwoWayConfig, NeckConfig, HeadConfig, PPuEConfig,
-               PredictorConfig, TrainConfig, *CONFIGS]
+               PredictorConfig, TrainConfig, *CONFIGS, ClipTextConfig,
+               ClipVisualConfig, ClipViTConfig]
     return {c.__name__: c for c in classes}
 
 

@@ -1,5 +1,5 @@
 """Reference torch checkpoints -> the port's parameter trees
-(pvpuformer_tpu/utils/torch_ingest.py, without the CLIP converters).
+(pvpuformer_tpu/utils/torch_ingest.py).
 
 Covers the reference's pretrained-weight path
 (`models_vit.py:150-166 init_weights_from_pretrained` over the MAE
@@ -12,8 +12,10 @@ published models:
   * `convert_hrnet_checkpoint`, `convert_deeplab_checkpoint`: the RITM zoo;
   * `convert_mit_backbone` (mmseg) / `convert_mit_official` (NVlabs),
     `convert_swin_backbone`: SegFormer and Swin backbones;
-  * `convert_hrformer_checkpoint`: HRFormer (HRT_B_OCR_V3).
-The CLIP converters come with the caption tower, which is not ported.
+  * `convert_hrformer_checkpoint`: HRFormer (HRT_B_OCR_V3);
+  * `convert_clip_resnet`, `convert_clip_vit`, `convert_clip_text`: the
+    CLIP visual towers and text encoder (`models/zoo/clip_text.py`),
+    loaded strictly by `load_clip`.
 
 Each returns the JAX package's nested tree with numpy leaves, bit for bit.
 `serialization.flatten_tree` flattens it and `models.registry.load` loads
@@ -811,3 +813,106 @@ def convert_swin_backbone(sd: Dict[str, np.ndarray], cfg,
         stages.append(stage)
     out["stages"] = stages
     return out
+
+
+# ---------------------------------------------------------------------------
+# CLIP (modeling/clip.py)
+# ---------------------------------------------------------------------------
+
+def _clip_block(sd, b: str) -> Dict[str, Any]:
+    """A ResidualAttentionBlock: torch nn.MultiheadAttention's packed
+    in_proj maps onto the fused qkv."""
+    return {"ln1": _gn(sd, f"{b}.ln_1"),
+            "qkv": {"w": sd[f"{b}.attn.in_proj_weight"].T,
+                    "b": sd[f"{b}.attn.in_proj_bias"]},
+            "proj": _lin(sd, f"{b}.attn.out_proj"),
+            "ln2": _gn(sd, f"{b}.ln_2"),
+            "mlp": {"fc1": _lin(sd, f"{b}.mlp.c_fc"),
+                    "fc2": _lin(sd, f"{b}.mlp.c_proj")}}
+
+
+def _clip_blocks(sd, pre: str) -> list:
+    blocks = []
+    while f"{pre}transformer.resblocks.{len(blocks)}.ln_1.weight" in sd:
+        blocks.append(_clip_block(
+            sd, f"{pre}transformer.resblocks.{len(blocks)}"))
+    return blocks
+
+
+def convert_clip_resnet(sd: Dict[str, np.ndarray], cfg) -> Dict[str, Any]:
+    """CLIP ModifiedResNet state dict (`modeling/clip.py:147-223`; keys
+    optionally prefixed `visual.`) -> the `ModifiedResNet` tree. `cfg` is a
+    ClipVisualConfig."""
+    pre = "visual." if "visual.conv1.weight" in sd else ""
+
+    def block(prefix):
+        p = {"c1": _conv_bn(sd, f"{prefix}.conv1", f"{prefix}.bn1"),
+             "c2": _conv_bn(sd, f"{prefix}.conv2", f"{prefix}.bn2"),
+             "c3": _conv_bn(sd, f"{prefix}.conv3", f"{prefix}.bn3")}
+        if f"{prefix}.downsample.0.weight" in sd:
+            p["down"] = _conv_bn(sd, f"{prefix}.downsample.0",
+                                 f"{prefix}.downsample.1")
+        return p
+
+    def layer(name, blocks):
+        return [block(f"{pre}{name}.{j}") for j in range(blocks)]
+
+    ap = f"{pre}attnpool"
+    return {
+        "stem1": _conv_bn(sd, f"{pre}conv1", f"{pre}bn1"),
+        "stem2": _conv_bn(sd, f"{pre}conv2", f"{pre}bn2"),
+        "stem3": _conv_bn(sd, f"{pre}conv3", f"{pre}bn3"),
+        "layer1": layer("layer1", cfg.layers[0]),
+        "layer2": layer("layer2", cfg.layers[1]),
+        "layer3": layer("layer3", cfg.layers[2]),
+        "layer4": layer("layer4", cfg.layers[3]),
+        "attnpool": {
+            "pos": sd[f"{ap}.positional_embedding"],
+            "q": _lin(sd, f"{ap}.q_proj"),
+            "k": _lin(sd, f"{ap}.k_proj"),
+            "v": _lin(sd, f"{ap}.v_proj"),
+            "c": _lin(sd, f"{ap}.c_proj"),
+            "connect": _conv_bn(sd, f"{ap}.connect.0", f"{ap}.connect.1"),
+        },
+    }
+
+
+def convert_clip_vit(sd: Dict[str, np.ndarray], cfg) -> Dict[str, Any]:
+    """CLIP VisionTransformer state dict (`modeling/clip.py:286-332`; keys
+    optionally prefixed `visual.`) -> the `ClipViT` tree."""
+    pre = "visual." if "visual.conv1.weight" in sd else ""
+    return {
+        "conv1": _conv(sd, f"{pre}conv1"),
+        "class_embedding": sd[f"{pre}class_embedding"],
+        "pos_embedding": sd[f"{pre}positional_embedding"],
+        "ln_pre": _gn(sd, f"{pre}ln_pre"),
+        "blocks": _clip_blocks(sd, pre),
+        "ln_post": _gn(sd, f"{pre}ln_post"),
+        "proj": sd[f"{pre}proj"],
+    }
+
+
+def convert_clip_text(sd: Dict[str, np.ndarray], cfg) -> Dict[str, Any]:
+    """CLIP text-encoder state dict (`modeling/clip.py:353-456`) -> the
+    `ClipText` tree; a state dict without `logit_scale` gets CLIP's
+    initial log(1 / 0.07)."""
+    return {
+        "token_embedding": sd["token_embedding.weight"],
+        "pos_embedding": sd["positional_embedding"],
+        "blocks": _clip_blocks(sd, ""),
+        "ln_final": _gn(sd, "ln_final"),
+        "text_projection": sd["text_projection"],
+        "logit_scale": sd.get("logit_scale", np.float32(np.log(1 / 0.07))),
+    }
+
+
+def load_clip(tree: Dict[str, Any], cfg) -> torch.nn.Module:
+    """A converted CLIP tree -> its module on the CPU (`ClipText`,
+    `ModifiedResNet` or `ClipViT`, by the type of `cfg`), loaded strictly:
+    missing, extra or mis-shaped leaves raise."""
+    from ..models.zoo import clip_text as C
+    cls = {C.ClipTextConfig: C.ClipText, C.ClipVisualConfig:
+           C.ModifiedResNet, C.ClipViTConfig: C.ClipViT}[type(cfg)]
+    module = cls(cfg)
+    module.load_state_dict(params_from_numpy(flatten_tree(tree)))
+    return module

@@ -55,6 +55,8 @@ import pvpuformer_tpu_torch.parallel.mesh
 import pvpuformer_tpu_torch.utils.profiling
 import pvpuformer_tpu_torch.inference.sam_compat
 import pvpuformer_tpu_torch.gate_int8
+import pvpuformer_tpu_torch.models.zoo.clip_text
+import pvpuformer_tpu_torch.models.decoder
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton',
                                     'tkinter', 'demo', 'demo_widgets'))

@@ -151,5 +151,16 @@ def test_batched_mode_runs_plainvit_as_sequential(weights):
 
 
 def test_plainvit_random_split_is_refused():
-    with pytest.raises(NotImplementedError, match="random_split"):
-        PlainVitModel(PlainVitConfig(random_split=True))
+    """random_split was refused until the token shuffle was ported. In JAX
+    the flag is read and otherwise inert (the shuffle runs only where a
+    caller passes a shuffle key), so the port builds the model and its
+    forward without `shuffle_noise` is the plain one
+    (tests/test_torch_caption.py holds the shuffle forward itself)."""
+    cfg = config_from_dict(config_to_dict(tiny_plainvit()))
+    plain = init_plainvit(cfg, torch.Generator().manual_seed(0), "cpu")
+    flagged = PlainVitModel(cfg.replace(random_split=True))
+    flagged.load_state_dict(plain.state_dict())
+    img, pts = (torch.from_numpy(a) for a in forward_inputs())
+    assert flagged.cfg.random_split
+    assert torch.equal(flagged(img, pts)["instances"],
+                       plain(img, pts)["instances"])

@@ -100,8 +100,20 @@ def test_deeplab_config_takes_the_zoo_branch():
 
 
 def test_clip_configs_stay_refused():
-    with pytest.raises(ValueError, match="ClipTextConfig.*is not ported"):
-        ser.config_from_dict(jser.config_to_dict(ClipTextConfig()))
+    """The CLIP configs were refused until the text tower was ported; JAX
+    registers all three, and the port now reads each back field for
+    field. A class neither package has is still refused by name."""
+    from pvpuformer_tpu.models.zoo.clip_text import (ClipViTConfig,
+                                                     ClipVisualConfig)
+    from pvpuformer_tpu_torch.models.zoo import clip_text as tclip
+    for jcfg in (ClipTextConfig(), ClipVisualConfig(layers=(2, 3, 4, 5)),
+                 ClipViTConfig(width=64)):
+        got = ser.config_from_dict(jser.config_to_dict(jcfg))
+        assert type(got) is getattr(tclip, type(jcfg).__name__)
+        assert got.__dict__ == jcfg.__dict__
+        assert ser.config_to_dict(got) == jser.config_to_dict(jcfg)
+    with pytest.raises(ValueError, match="NoSuchConfig.*is not ported"):
+        ser.config_from_dict({"__class__": "NoSuchConfig"})
 
 
 @pytest.mark.parametrize("jcfg", FAMILIES + [RESNET34], ids=family_id)
