@@ -26,7 +26,14 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      torch.profiler; the min-plus kernel bit-exact, bit-identical on repeat
      and one CUDA kernel per call at the click and training shapes, two
      ragged ones and the widest row, W = 8192, with values up to 2^24 - 1,
-     with its device time at the path shapes; and whether torch's
+     with its device time at the path shapes; the LN+MLP kernel's
+     tensor-parallel launch (b') (`launch_fc2_partial`, f32 out, ViT-B's
+     local hidden width 1536 at M = 2) at 6272 and 25088 rows against
+     `fc2_partial_plain` within FC2_PARTIAL_TOL and bit-identical on
+     repeat, beside torch.mm(h, w2, out_dtype=torch.float32); the
+     host-side distance maps of pvpuformer_tpu_torch/native, built with g++
+     and held bit for bit against their numpy twin at 448 x 448 with 24
+     clicks; and whether torch's
      allow_bf16_reduced_precision_reduction changes a bf16 linear at the
      model's shapes), with the
      error beside its tolerance, the kernel time beside the plain time, the
@@ -178,6 +185,16 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      batch, the wrapper launches per rank; then `BatchedEvaluator(mesh=)`
      with B = 16 (8 sessions a rank) x 20 clicks on 16 Synthetic objects
      against one process's B = 16: equal clicks, IoU within SCALE_IOU_TOL;
+     then, in the same two processes, tensor parallelism on the (1, 2)
+     mesh ("tp" and "tp+fsdp", ViT-B@448 bf16, both ranks on the global
+     batch 8, 2 steps of 3 rounds): both ranks' losses identical and
+     within SCALE_LOSS_TOL of the one process, the wrapper launches per
+     rank exact (attention forward and backward 12 a round on 6 heads, the
+     tensor-parallel LN+MLP's launches (a) and (b') and its backward 12 a
+     round, the unsplit LN+MLP none), one traced "tp" step per rank
+     showing (b') on the card, and the gathered "tp+fsdp" checkpoint
+     loading strictly in one process (no speed claim: gloo goes through
+     the host and the two ranks share the card);
      (b) FSDP at world size 1 under NCCL in a process of
      `torch.distributed.run --nproc-per-node 1` (`--worker fsdp`): the
      ViT-L recipe's `build_trainer` in its default mode ("fsdp") against
@@ -336,6 +353,10 @@ CC_ITERS = (1, 2, 8, 16)
 # 5. The brute force's 2 W f32 operations per element are the TPU kernel's
 # dense form, not the least work.
 MINPLUS_OPS = 20
+# phase 3, launch (b') (f32 out) against `fc2_partial_plain`: the same
+# exact bf16 products summed in another order, atol 1e-3 + rtol 1e-4 (as
+# tests/test_torch_cuda.py, where they matched on an H100)
+FC2_PARTIAL_TOL = (1e-3, 1e-4)
 
 
 def _log(msg: str) -> None:
@@ -443,8 +464,8 @@ def phase_kernels(dev):
         err[name] = max(err.get(name, 0.0), r[0])
         _log(f"    bound {bound[0] * 1e3:.2f} us ({bound[1]})"
              + ("" if library_ms is None else
-                f"  library (SDPA) {library_ms:.4f} ms, kernel / SDPA "
-                f"{r[1] / library_ms:.2f}x"))
+                f"  library ({yardstick}) {library_ms:.4f} ms, kernel / "
+                f"{yardstick} {r[1] / library_ms:.2f}x"))
         kern_dev, lib_dev = device or (None, None)
         if kern_dev is not None and lib_dev is None:
             _log(f"    device time (CUDA graph): kernel {kern_dev:.4f} ms")
@@ -666,6 +687,37 @@ def phase_kernels(dev):
                     "bound_ms": bound[0], "bound_by": bound[1],
                     "max_abs_err": r[0], "chain_device_ms": chain_ms}
             del x
+    # launch (b'), the tensor-parallel fc2 (`launch_fc2_partial`): ViT-B's
+    # local hidden width at M = 2 (1536 of 3072) at phase 17's TP rows
+    # (batch 8: 6272 tokens) and the training path's (batch 32: 25088), f32
+    # out, against `fc2_partial_plain` (the same bf16 products summed in
+    # another order), bit-identical on repeat; beside it the one PyTorch
+    # call for the same function, torch.mm(h, w2, out_dtype=torch.float32)
+    for m in (8 * 784, 32 * 784):
+        hid, d = 1536, 768
+        h = (torch.randn((m, hid), generator=g) * 0.5).to(dev, torch.bfloat16)
+        w2 = (torch.randn((hid, d), generator=g) * 0.05).to(dev,
+                                                            torch.bfloat16)
+        call = lambda: fused_mlp.launch_fc2_partial(h, w2)  # noqa: E731
+        r = _compare(f"fc2_partial ({m},{hid})->{d} bf16, f32 out", call,
+                     lambda: fused_mlp.fc2_partial_plain(h, w2),
+                     *FC2_PARTIAL_TOL)
+        if not torch.equal(call(), call()):
+            raise AssertionError("fc2_partial: not bit-identical on repeat")
+        mm_call = lambda: torch.mm(h, w2, out_dtype=torch.float32)  # noqa
+        lib_ms = _time_ms(mm_call)
+        dev_ms, lib_dev = _device_ms(call), _device_ms(mm_call)
+        bound = _bound(2.0 * m * hid * d, PEAK_BF16,
+                       2.0 * (m * hid + hid * d) + 4.0 * m * d)
+        record("fc2_partial", r, m == 8 * 784, bound, lib_ms,
+               device=(dev_ms, lib_dev), yardstick="torch.mm")
+        if m == 32 * 784:
+            times["fc2_partial"].update(
+                ms_train=r[1], plain_ms_train=r[2], device_ms_train=dev_ms,
+                bound_ms_train=bound[0], library_ms_train=lib_ms,
+                library_device_ms_train=lib_dev)
+        del h, w2
+    phase_native()
     d = 768
     m = 32 * 784
     x, gy = (torch.randn((m, d), generator=g).to(dev, torch.bfloat16)
@@ -679,6 +731,35 @@ def phase_kernels(dev):
     phase_bf16_reduction(dev, g)
     phase_cc(dev, g, record, times)
     return {name: dict(times[name], max_abs_err=err[name]) for name in err}
+
+
+def phase_native():
+    """The host-side distance maps (pvpuformer_tpu_torch/native): built with
+    g++ on this machine, held bit for bit against their numpy twin at
+    448 x 448 with 24 clicks (12 slots a layer, a few off the canvas and
+    padding), delimiter 5 (inexact distances)."""
+    from pvpuformer_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    built = time.perf_counter() - t0
+    r = np.random.default_rng(11)
+    pts = np.full((24, 3), -1.0, np.float32)
+    for j, i in enumerate(r.choice(24, size=20, replace=False)):
+        pts[i] = (r.integers(-5, 453), r.integers(0, 448), j)
+    t0 = time.perf_counter()
+    got = native.get_dist_maps(pts, 448, 448, 5.0)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = native.get_dist_maps_numpy(pts, 448, 448, 5.0)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    ok = got.shape == (2, 448, 448) and np.array_equal(got, want)
+    _log(f"  native get_dist_maps (448 x 448, 24 clicks, delimiter 5): "
+         f"built {lib.name} in {built:.1f} s; bit-identical to "
+         f"get_dist_maps_numpy {ok}; C++ {c_ms:.1f} ms, numpy "
+         f"{py_ms:.1f} ms (host) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("native get_dist_maps disagrees with its numpy "
+                             "twin")
 
 
 def phase_bf16_reduction(dev, g):
@@ -1470,10 +1551,22 @@ def _counts():
 
 
 def _zero_counts():
+    from pvpuformer_tpu_torch.ops.fused_mlp import fused_ln_mlp_tp
     for w in _wrappers():
         w.launches = 0
         if hasattr(w, "bwd_launches"):
             w.bwd_launches = 0
+    # the tensor-parallel LN+MLP (phase 17's TP leg, `_tp_counts`)
+    fused_ln_mlp_tp.launches = fused_ln_mlp_tp.epilogues = 0
+    fused_ln_mlp_tp.bwd_launches = 0
+
+
+def _tp_counts():
+    """The tensor-parallel LN+MLP's counters: its forward calls (launches
+    (a) and (b') each), their epilogues and its backward calls."""
+    from pvpuformer_tpu_torch.ops.fused_mlp import fused_ln_mlp_tp as t
+    return {"fused_ln_mlp_tp": t.launches, "fused_ln_mlp_tp_epilogue":
+            t.epilogues, "fused_ln_mlp_tp_bwd": t.bwd_launches}
 
 
 def train_batch(b: int, hw: int, n: int, seed: int = 0):
@@ -3763,8 +3856,8 @@ def _steps(trainer, batch, seeds, dev, mesh):
             losses.append(float(logs["loss"]))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
-    return losses, ms, _counts(), {k: v / len(seeds) for k, v in
-                                   coll.items() if v}
+    return losses, ms, {**_counts(), **_tp_counts()}, {
+        k: v / len(seeds) for k, v in coll.items() if v}
 
 
 def _scale_train(dev, mesh):
@@ -3820,16 +3913,99 @@ def _scale_eval(dev, mesh, b: int = SCALE_EVAL_B):
             "launches": _counts(), "collectives": coll}
 
 
+TP_MODES = ("tp", "tp+fsdp")    # 17a's TP leg, on the (1, 2) mesh
+
+
+def _scale_tp(dev, out_dir: str):
+    """17a's tensor-parallel leg, in the same two gloo ranks: ViT-B@448 bf16
+    (seeded weights, Adam 5e-5) on the (1, 2) mesh, both ranks on the
+    global batch SCALE_BATCH, SCALE_STEPS steps of SCALE_ITERS rounds in
+    each of TP_MODES: per mode the losses, ms per step, wrapper counts
+    (the tensor-parallel LN+MLP's too), the head counts the attention
+    wrapper saw, collectives per step; in "tp" one more step traced by
+    torch.profiler (one window a rank, no retake: the ranks must call their
+    collectives alike); in "tp+fsdp" the gathered checkpoint, which rank 0
+    writes to out_dir/tp_fsdp.npz."""
+    import torch
+    from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
+    from pvpuformer_tpu_torch.engine.train_step import TrainConfig
+    from pvpuformer_tpu_torch.engine.trainer import Trainer
+    from pvpuformer_tpu_torch.models import vit
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+    from pvpuformer_tpu_torch.parallel import dist
+    from pvpuformer_tpu_torch.parallel.mesh import (full_state_dict,
+                                                    is_sharded, make_mesh,
+                                                    shard_batch)
+    from pvpuformer_tpu_torch.utils.serialization import save_checkpoint
+
+    mesh = make_mesh(model_parallel=2)
+    out = {"mesh": mesh.mesh.tolist()}
+    heads = set()
+    attn = vit.fused_attention
+
+    def spy(q, k, v, *a, **kw):
+        heads.add(int(q.shape[2]))
+        return attn(q, k, v, *a, **kw)
+    for mode in TP_MODES:
+        t0 = time.perf_counter()
+        cfg = TrainConfig(model=vpu_base_config(dtype=torch.bfloat16))
+        model = init_vpu(cfg.model, torch.Generator().manual_seed(0), dev)
+        trainer = Trainer(model, cfg, make_optimizer(model, "adam", lr=5e-5),
+                          None, device=dev, mesh=mesh, param_mode=mode)
+        hw = cfg.model.backbone.img_size[0]
+        batch = shard_batch(_scale_batch(SCALE_BATCH, hw,
+                                         cfg.model.num_max_points), mesh)
+        seeds = _box_seeds(cfg, SCALE_ITERS, SCALE_STEPS)
+        heads.clear()
+        vit.fused_attention = spy
+        try:
+            losses, ms, counts, coll = _steps(trainer, batch, seeds, dev,
+                                              mesh)
+        finally:
+            vit.fused_attention = attn
+        res = {"losses": losses, "step_ms": ms, "launches": counts,
+               "collectives_per_step": coll, "rows": len(batch["image"]),
+               "heads": sorted(heads), "sharded": is_sharded(trainer.model),
+               "types": _train_noise_types(cfg, seeds),
+               "depth": cfg.model.backbone.depth}
+        if mode == "tp":
+            _, names = _kernel_trace(lambda: _steps(
+                trainer, batch, seeds[:1], dev, mesh), sessions=1)
+            res["device"] = {
+                "fc2_partial": sum("fc2_residual_kernel" in n
+                                   and "true>" in n for n in names),
+                "fc2_residual": sum("fc2_residual_kernel" in n
+                                    and "false>" in n for n in names),
+                "ln_fc1_gelu": sum("ln_fc1_gelu" in n for n in names),
+                "attention_fwd": sum("attention_fwd" in n for n in names)}
+        else:
+            t = time.perf_counter()
+            state = full_state_dict(trainer.model)
+            opt = trainer.tx.state_dict()
+            if dist.is_master():
+                save_checkpoint(os.path.join(out_dir, "tp_fsdp.npz"), state,
+                                config=cfg, opt_state=opt, step=SCALE_STEPS)
+            res["save_s"] = time.perf_counter() - t
+            del state, opt
+        res["leg_s"] = time.perf_counter() - t0
+        out[mode] = res
+        del trainer, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def worker_scaleout(out_dir: str) -> None:
     """One gloo rank of 17a on cuda:0 (chip_smoke starts two): training,
-    then the sharded evaluation; writes out_dir/rank<R>.json."""
+    the sharded evaluation, then the tensor-parallel leg; writes
+    out_dir/rank<R>.json."""
     from pvpuformer_tpu_torch.parallel import dist
     from pvpuformer_tpu_torch.parallel.mesh import make_mesh
     dev = dist.init("cuda:0", backend="gloo")
     try:
         mesh = make_mesh()
         out = {"train": _scale_train(dev, mesh),
-               "eval": _scale_eval(dev, mesh)}
+               "eval": _scale_eval(dev, mesh),
+               "tp": _scale_tp(dev, out_dir)}
         with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
                   "w") as f:
             json.dump(out, f)
@@ -4028,6 +4204,89 @@ def _noise_cost(card: str) -> None:
          f"{card})")
 
 
+def _tp_checkpoint(path: str):
+    """The TP leg's gathered "tp+fsdp" checkpoint in one process: its
+    leaves loaded strictly into a one-process VPU (`registry.load`), its
+    Adam moments into a one-process optimizer, each of the parameter's
+    shape; returns what the check reads."""
+    from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
+    from pvpuformer_tpu_torch.models import registry
+    from pvpuformer_tpu_torch.utils.serialization import load_checkpoint
+    t = time.perf_counter()
+    flat, cfg, step, extra = load_checkpoint(path, opt_state=True)
+    model = registry.load(flat, cfg.model)
+    tx = make_optimizer(model, "adam", lr=5e-5)
+    opt = extra["opt_state"]
+    shapes = all(tuple(v.shape) == tuple(tx.params[int(k.split("/")[1])]
+                                          .shape)
+                 for k, v in opt.items() if k.endswith(("exp_avg",
+                                                        "exp_avg_sq")))
+    tx.load_state_dict(opt)
+    qkv = tuple(flat["backbone/blocks/#0/attn/qkv/w"].shape)
+    return {"step": step, "moments": sum(k.endswith("exp_avg") for k in opt),
+            "params": len(tx.params), "shapes": shapes, "qkv": qkv,
+            "finite": all(np.isfinite(v).all() for v in flat.values()),
+            "load_s": time.perf_counter() - t}
+
+
+def _check_tp(tp, one, ckpt, card: str) -> None:
+    """17a's TP leg (`_scale_tp` in both ranks) against the one process's
+    steps: identical losses on the two model ranks and within
+    SCALE_LOSS_TOL of one process's, every rank's wrapper launches exact
+    (the unsplit LN+MLP none), 6 heads a rank, (b') in the traced step,
+    the checkpoint whole and loaded."""
+    for mode in TP_MODES:
+        a, b = tp[0][mode], tp[1][mode]
+        depth = a["depth"]
+        rounds = sum(map(len, a["types"]))
+        want = dict(_scale_launches(depth, a["types"]), fused_ln_mlp=0,
+                    fused_ln_mlp_bwd=0, fused_ln_mlp_tp=depth * rounds,
+                    fused_ln_mlp_tp_epilogue=depth * rounds,
+                    fused_ln_mlp_tp_bwd=depth * rounds)
+        dloss = max(abs(x - y) for x, y in zip(a["losses"], one["losses"]))
+        ok = (a["losses"] == b["losses"] and dloss <= SCALE_LOSS_TOL
+              and np.isfinite(a["losses"]).all()
+              and a["types"] == one["types"]
+              and a["rows"] == b["rows"] == SCALE_BATCH
+              and a["heads"] == b["heads"] == [6]
+              and a["sharded"] == b["sharded"] == (mode == "tp+fsdp")
+              and all(r["launches"][k] == v for r in (a, b)
+                      for k, v in want.items()))
+        extra = ""
+        if mode == "tp":
+            seen = [r["tp"]["device"] for r in tp]
+            ok = ok and (max(d["fc2_partial"] for d in seen) > 0
+                         and all(d["fc2_residual"] == 0 for d in seen))
+            extra = (f"; one traced step a rank, device launches {seen} "
+                     f"(torch.profiler)")
+        else:
+            ok = ok and (ckpt["step"] == SCALE_STEPS and ckpt["shapes"]
+                         and ckpt["finite"] and ckpt["qkv"] == (768, 2304)
+                         and ckpt["moments"] == ckpt["params"])
+            extra = (f"; the gathered checkpoint: written in "
+                     f"{a['save_s']:.1f} s, loaded strictly in one process "
+                     f"in {ckpt['load_s']:.1f} s (qkv {ckpt['qkv']}, "
+                     f"{ckpt['moments']} exp_avg leaves of the parameters' "
+                     f"shapes, step {ckpt['step']})")
+        _log(f"  17a TP leg, mesh {tp[0]['mesh']} (2 gloo ranks on cuda:0, "
+             f"M = 2), {mode}, ViT-B@448 bf16, global batch {SCALE_BATCH} "
+             f"on both ranks, {SCALE_STEPS} steps x {SCALE_ITERS} rounds: "
+             f"losses rank 0 {a['losses']}, rank 1 {b['losses']}; one "
+             f"process {one['losses']}; max |dloss| {dloss:.3e} (tol "
+             f"{SCALE_LOSS_TOL}); heads a rank {a['heads']}; collectives "
+             f"per step {a['collectives_per_step']}; ms per step "
+             f"{[round(x, 1) for x in a['step_ms']]} (no speed claim: gloo "
+             f"goes through the host and the two ranks share the card); "
+             f"the leg {a['leg_s']:.1f} s; launches per rank "
+             f"{ {k: v for k, v in a['launches'].items() if v} } (want "
+             f"{ {k: v for k, v in want.items() if v} }){extra} ({card}) "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"17a TP leg ({mode}): the ranks disagree "
+                                 f"with each other, with one process, in "
+                                 f"their launches or in the checkpoint")
+
+
 def _add(total, counts):
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -4056,6 +4315,7 @@ def phase_scaleout(dev, card: str):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
         secs = time.perf_counter() - t
+        tp_ckpt = _tp_checkpoint(os.path.join(tmp, "tp_fsdp.npz"))
     one = _scale_train(dev, None)
     r0, r1 = (r["train"] for r in ranks)
     dloss = max(abs(a - b) for a, b in zip(r0["losses"], one["losses"]))
@@ -4116,6 +4376,10 @@ def phase_scaleout(dev, card: str):
                              "one process's")
     _add(launches, e0["launches"])
     _add(launches, e1["launches"])
+    _check_tp([r["tp"] for r in ranks], one, tp_ckpt, card)
+    for r in ranks:
+        for mode in TP_MODES:
+            _add(launches, r["tp"][mode]["launches"])
     del one, single, half
     torch.cuda.empty_cache()
 
@@ -5565,11 +5829,15 @@ def main() -> int:
     graphs.clear()
     torch.cuda.empty_cache()
     _log("[17/20] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
-         "training and sharded batched evaluation), FSDP at world size 1 "
-         "under NCCL (the ViT-L recipe), evaluate --eval-mesh 1")
+         "training, sharded batched evaluation, tensor parallelism tp and "
+         "tp+fsdp at M = 2), FSDP at world size 1 under NCCL (the ViT-L "
+         "recipe), evaluate --eval-mesh 1")
     scale = _timed(phase_scaleout, dev, smi)
     for name in launches:
         launches[name] += scale.get(name, 0)
+    # launch (b') runs on the TP leg's path only: one per forward call of
+    # the tensor-parallel LN+MLP
+    launches["fc2_partial"] = scale.get("fused_ln_mlp_tp", 0)
     graphs.clear()
     torch.cuda.empty_cache()
     _log("[18/20] the evaluation CLI's protocols: the launcher's command, "
@@ -5612,6 +5880,9 @@ def main() -> int:
                          "pvpuformer_tpu/ops/edt_pallas.py:28"),
         "fused_ln_mlp": ("pvpuformer_tpu_torch/csrc/fused_mlp.cu",
                          "pvpuformer_tpu/ops/fused_mlp.py:37"),
+        # the same TPU kernel under tensor parallelism: launch (b')
+        "fc2_partial": ("pvpuformer_tpu_torch/csrc/fused_mlp.cu",
+                        "pvpuformer_tpu/ops/fused_mlp.py:37"),
         "cc_labels": ("pvpuformer_tpu_torch/csrc/cc.cu",
                       "pvpuformer_tpu/ops/cc_pallas.py:86"),
         "component_max": ("pvpuformer_tpu_torch/csrc/cc.cu",

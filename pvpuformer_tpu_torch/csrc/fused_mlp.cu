@@ -33,10 +33,15 @@
 //       producer lane w, and the two take turns at the products, so one's
 //       bias + tanh-GELU epilogue overlaps the other's products. The
 //       producer starts both rings before the LayerNorm. bf16x2 stores.
-//   (b) fc2_residual_kernel<BN>: h (128 x 64) and W2 (64 x BN) tiles
+//   (b) fc2_residual_kernel<BN, false>: h (128 x 64) and W2 (64 x BN) tiles
 //       through the ring, K = Hd; warpgroup w owns rows 64w..64w+63; bias
 //       and residual from registers. BN = 64 when 128 x 128 tiles would
 //       leave SMs idle (the click shape: 156 blocks instead of 78).
+//   (b') fc2_residual_kernel<BN, PARTIAL = true> (pvpu_fc2_partial): the
+//       tensor-parallel split of a block, where W2's rows are cut over M
+//       ranks: the same main loop on the local Hd / M rows, and the f32
+//       accumulator written out as it is; the caller all-reduces it, then
+//       adds the bias and the residual and rounds once.
 // Every row past M is zero-filled by TMA (or by the LayerNorm) and masked at
 // the store. No atomics: the output is the same bits on every call.
 #include <cuda.h>          // CUtensorMap and its enums (types only)
@@ -373,12 +378,16 @@ ln_fc1_gelu_kernel(const __grid_constant__ CUtensorMap w1_map,
   }
 }
 
-template <int BN>
+// PARTIAL (b'): the same main loop, and an epilogue that writes the f32
+// accumulator as it is (no bias, no residual, no rounding) to `out` as f32:
+// under a row split of W2 over M ranks each holds a partial sum of fc2,
+// which is reduced before the bias, the residual and the one rounding
+template <int BN, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS, 1)
 fc2_residual_kernel(const __grid_constant__ CUtensorMap h_map,
                     const __grid_constant__ CUtensorMap w2_map,
                     const float* __restrict__ b2, const bf16* __restrict__ x,
-                    bf16* __restrict__ out, int M, int D, int Hd) {
+                    void* __restrict__ out, int M, int D, int Hd) {
   constexpr int STAGE = B_ATILE + BN / 64 * B_CHUNK;
   unsigned char* ring = smem_base();
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
@@ -435,15 +444,21 @@ fc2_residual_kernel(const __grid_constant__ CUtensorMap h_map,
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = n0 + j * 8 + 2 * tq;
-    const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+    float2 bb = make_float2(0.0f, 0.0f);
+    if (!PARTIAL) bb = *reinterpret_cast<const float2*>(b2 + col);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = m0 + wg * 64 + wr * 16 + g + 8 * hh;
       if (row >= M) continue;
       const size_t o = (size_t)row * D + col;
+      if (PARTIAL) {
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+        continue;
+      }
       const float2 xr = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(x + o));
-      *reinterpret_cast<uint32_t*>(out + o) =
+      *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + o) =
           pack_bf16(acc[4 * j + 2 * hh] + bb.x + xr.x,
                     acc[4 * j + 2 * hh + 1] + bb.y + xr.y);
     }
@@ -543,17 +558,35 @@ cudaError_t allow_smem(Kernel kernel) {
                               SMEM_MAX);
 }
 
-template <int BN>
+template <int BN, bool PARTIAL>
 int launch_fc2(const CUtensorMap& hm, const CUtensorMap& wm, const float* b2,
-               const bf16* x, bf16* out, int M, int D, int Hd,
+               const bf16* x, void* out, int M, int D, int Hd,
                cudaStream_t stream) {
-  static const cudaError_t attr = allow_smem(fc2_residual_kernel<BN>);  // once
+  static const cudaError_t attr =
+      allow_smem(fc2_residual_kernel<BN, PARTIAL>);  // once
   if (attr != cudaSuccess) return (int)attr;
   const int smem = STAGES * (B_ATILE + BN / 64 * B_CHUNK) + SMEM_EXTRA;
   const dim3 grid(D / BN, (M + B_BM - 1) / B_BM);
-  fc2_residual_kernel<BN><<<grid, THREADS, smem, stream>>>(hm, wm, b2, x, out,
-                                                           M, D, Hd);
+  fc2_residual_kernel<BN, PARTIAL><<<grid, THREADS, smem, stream>>>(
+      hm, wm, b2, x, out, M, D, Hd);
   return (int)cudaGetLastError();
+}
+
+// (b) or (b'): BN = 64 when 128 x 128 tiles would leave SMs idle
+template <bool PARTIAL>
+int fc2(const void* h, const void* w2, const void* b2, const void* x,
+        void* out, int M, int D, int Hd, void* stream) {
+  if (D % 128 || Hd % 128 || M < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap hm, wm;
+  if (!bf16_map(&hm, h, M, Hd, 64, B_BM) || !bf16_map(&wm, w2, Hd, D, 64, B_BK))
+    return (int)cudaErrorNotSupported;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int tiles128 = ((M + B_BM - 1) / B_BM) * (D / 128);
+  return tiles128 >= sm_count()
+             ? launch_fc2<128, PARTIAL>(hm, wm, (const float*)b2,
+                                        (const bf16*)x, out, M, D, Hd, s)
+             : launch_fc2<64, PARTIAL>(hm, wm, (const float*)b2,
+                                       (const bf16*)x, out, M, D, Hd, s);
 }
 
 template <int BK>
@@ -608,15 +641,12 @@ extern "C" int pvpu_ln_fc1_gelu(const void* x, const void* gamma,
 extern "C" int pvpu_fc2_residual(const void* h, const void* w2, const void* b2,
                                  const void* x, void* out, int M, int D, int Hd,
                                  void* stream) {
-  if (D % 128 || Hd % 128 || M < 1) return (int)cudaErrorInvalidValue;
-  CUtensorMap hm, wm;
-  if (!bf16_map(&hm, h, M, Hd, 64, B_BM) || !bf16_map(&wm, w2, Hd, D, 64, B_BK))
-    return (int)cudaErrorNotSupported;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int tiles128 = ((M + B_BM - 1) / B_BM) * (D / 128);
-  return tiles128 >= sm_count()
-             ? launch_fc2<128>(hm, wm, (const float*)b2, (const bf16*)x,
-                               (bf16*)out, M, D, Hd, s)
-             : launch_fc2<64>(hm, wm, (const float*)b2, (const bf16*)x,
-                              (bf16*)out, M, D, Hd, s);
+  return fc2<false>(h, w2, b2, x, out, M, D, Hd, stream);
+}
+
+// (b'): out (M, D) f32 = h (M, Hd) . W2 (Hd, D), the same tiles and sums
+// as pvpu_fc2_residual before its bias and residual
+extern "C" int pvpu_fc2_partial(const void* h, const void* w2, void* out,
+                                int M, int D, int Hd, void* stream) {
+  return fc2<true>(h, w2, nullptr, nullptr, out, M, D, Hd, stream);
 }

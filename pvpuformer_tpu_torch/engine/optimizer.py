@@ -19,9 +19,11 @@ optimizer with one param group per distinct (lr scale, weight decay):
     between.
 A parameter that got no gradient (one the forward does not use) gets a zero
 gradient, as in JAX, so weight decay and the moments still apply to it.
-Under FSDP the parameters and the moments are `DTensor` shards: the state
-is written and read as whole tensors, so a checkpoint made on W ranks loads
-on one process and the other way round.
+Under FSDP the parameters and the moments are `DTensor` shards, and under
+tensor parallelism a split block's leaves and their moments are each model
+rank's part (the parameter's `tp_cut`): the state is written and read as
+whole tensors in JAX's layout, so a checkpoint made on W ranks loads on one
+process and the other way round.
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..parallel.mesh import full_tensor, placed_like
+
+
+def _cut(p: torch.Tensor):
+    """The parameter's cut over the mesh's "model" axis, if any."""
+    return getattr(p, "tp_cut", None)
 
 
 def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float,
@@ -148,10 +155,10 @@ class TrainOptimizer:
         for p, st in self.optimizer.state.items():
             for k, v in st.items():
                 out[f"state/{index[id(p)]}/{k}"] = full_tensor(
-                    torch.as_tensor(v))
+                    torch.as_tensor(v), _cut(p))
         if self._acc is not None:
-            for i, a in enumerate(self._acc):
-                out[f"acc/{i}"] = full_tensor(a)
+            for i, (a, p) in enumerate(zip(self._acc, self.params)):
+                out[f"acc/{i}"] = full_tensor(a, _cut(p))
         return out
 
     def load_state_dict(self, flat: Dict[str, torch.Tensor]) -> None:
@@ -165,10 +172,10 @@ class TrainOptimizer:
                 v = torch.as_tensor(v)
                 self.optimizer.state[p][parts[2]] = (
                     v.clone() if parts[2] == "step"
-                    else placed_like(v, p).clone())
+                    else placed_like(v, p, _cut(p)).clone())
         accs = [k for k in flat if k.startswith("acc/")]
         if accs:
-            self._acc = [placed_like(flat[f"acc/{i}"], p).clone()
+            self._acc = [placed_like(flat[f"acc/{i}"], p, _cut(p)).clone()
                          for i, p in enumerate(self.params)]
 
 

@@ -25,9 +25,11 @@ iterable of numpy batch dicts with `set_epoch(epoch)`.
 Data parallelism (JAX trainer.py:75-111,130-160,274-291): with a `mesh`
 (parallel/mesh.make_mesh, one rank per process under torch.distributed)
 the loader yields this rank's rows of each global batch (`Loader`'s
-process_index / process_count), the parameters are placed by
-`shard_params(model, mesh, param_mode)` ("replicated" or "fsdp"; the
-optimizer is rebound to FSDP's parameters), and `train_step` returns the
+process_index / process_count over the mesh's data ranks: the ranks of one
+model group load the same rows), the parameters are placed by
+`shard_params(model, mesh, param_mode)` ("replicated", "tp", "fsdp" or
+"tp+fsdp"; the optimizer is rebound to FSDP's parameters, and keeps the
+split blocks' parameters, cut in place), and `train_step` returns the
 global batch's logs and metric inputs, so the AdaptiveIoU state is the
 same on every rank and equals one process's. Rank 0 alone writes
 checkpoints, TensorBoard and panels; a checkpoint holds the whole
@@ -49,7 +51,7 @@ from .. import nn
 from ..models.vpu import VPUModel
 from ..parallel import dist
 from ..parallel.mesh import (data_size, full_state_dict, is_sharded,
-                             load_full_state_dict, shard_params)
+                             is_split, load_full_state_dict, shard_params)
 from ..utils.serialization import (load_checkpoint, params_from_numpy,
                                    save_checkpoint)
 from .metrics import AdaptiveIoU, adaptive_iou_step, state_thresholds
@@ -107,8 +109,9 @@ class Trainer:
         """`device` None means the card (and raises without one); the model
         moves there, its parameters keep their identity (so `tx`, built by
         `make_optimizer(model)`, still holds them) unless `param_mode`
-        "fsdp" shards them over `mesh`, and `tx` is then rebound to the
-        sharded parameters. Without a mesh every mode is one device's."""
+        "fsdp" or "tp+fsdp" shards them over `mesh`, and `tx` is then
+        rebound to the sharded parameters. Without a mesh every mode is one
+        device's."""
         self.device = nn.resolve_device(device)
         self.mesh = mesh
         self.param_mode = param_mode
@@ -261,10 +264,12 @@ class Trainer:
         return np.concatenate([row1, row2], axis=0)
 
     def _dump_visualization(self, batch) -> None:
-        """Rank 0's first sample; under FSDP every rank runs the forward
-        (its parameter gathers are collectives) and rank 0 writes."""
+        """Rank 0's first sample; under FSDP or tensor parallelism every
+        rank runs the forward (its parameter gathers and the split blocks'
+        reductions are collectives) and rank 0 writes."""
         if self.vis_dir is None or not (dist.is_master()
-                                        or is_sharded(self.model)):
+                                        or is_sharded(self.model)
+                                        or is_split(self.model)):
             return
         from ..utils.vis import write_png
         panel = self.dump_panel(batch)

@@ -6,7 +6,10 @@ batch axis by a pure reshape.
 
 Attention and the LN+MLP half of every block go through the ported kernels'
 wrappers: on a CUDA tensor they launch the hand-written Hopper kernels, on a
-CPU tensor they run the plain versions.
+CPU tensor they run the plain versions. A block that `parallel.mesh.shard_params`
+split over the mesh's "model" axis (`Block.tp`) runs Megatron's halves on its
+part of the heads and of the hidden width (parallel/tp.py,
+`ops.fused_mlp.fused_ln_mlp_tp`).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ from torch import nn as tnn
 from .. import nn
 from ..ops.attention import flash_attention
 from ..ops.fused_attention import fused_attention
-from ..ops.fused_mlp import fused_ln_mlp
+from ..ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_tp
+from ..parallel.tp import copy_to_model, linear_f32, reduce_from_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +76,14 @@ class ViTConfig:
 
 
 class Block(tnn.Module):
+    # its place on the mesh's "model" axis when `parallel.mesh.shard_params`
+    # split it (parallel/tp.py `Split`); None: the whole block
+    tp = None
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, g: Optional[torch.Generator] = None):
         super().__init__()
+        self.num_heads = num_heads
         self.norm1 = nn.Norm(dim)
         self.attn = nn.Node(
             qkv=nn.Linear(dim, dim * 3, bias=qkv_bias, init="xavier", g=g),
@@ -104,13 +113,30 @@ class ViT(tnn.Module):
 
 def block_forward(p: Block, x: torch.Tensor, num_heads: int, eps: float,
                   attn_impl: str = "auto", ln_f32: bool = True) -> torch.Tensor:
+    tp = p.tp
     b, n, d = x.shape
+    hd = d // num_heads
     h = nn.layer_norm(p.norm1, x, eps, f32=ln_f32)
-    qkv = nn.linear(p.attn.qkv, h).reshape(b, n, 3, num_heads, d // num_heads)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     attn_fn = flash_attention if attn_impl == "flash" else fused_attention
-    attn = attn_fn(q, k, v).reshape(b, n, d)
-    x = x + nn.linear(p.attn.proj, attn)
+    if tp is not None and tp.attn:
+        # Megatron's attention half: this rank's H / M heads, the f32
+        # partial sums of proj reduced over "model", then + bias + x
+        # rounded once
+        heads = num_heads // tp.size
+        h = copy_to_model(h, tp.group)
+        qkv = nn.linear(p.attn.qkv, h).reshape(b, n, 3, heads, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        attn = attn_fn(q, k, v).reshape(b * n, heads * hd)
+        part = reduce_from_model(linear_f32(attn, p.attn.proj.w), tp.group)
+        x = (part + p.attn.proj.b.float()).reshape(b, n, d).add(
+            x.float()).to(x.dtype)
+    else:
+        qkv = nn.linear(p.attn.qkv, h).reshape(b, n, 3, num_heads, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        attn = attn_fn(q, k, v).reshape(b, n, d)
+        x = x + nn.linear(p.attn.proj, attn)
+    if tp is not None and tp.mlp:
+        return fused_ln_mlp_tp(x, p.norm2, p.mlp, tp.group, eps)
     if isinstance(p.mlp.fc1, nn.QuantLinear) or isinstance(p.mlp.fc2,
                                                           nn.QuantLinear):
         # the kernel reads float weights; JAX's XLA MLP runs the int8 one:

@@ -46,6 +46,7 @@ SIGNATURES = {
     "pvpu_minplus_rows": [_P, _P, _I, _I, _P],
     "pvpu_ln_fc1_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pvpu_fc2_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pvpu_fc2_partial": [_P, _P, _P, _I, _I, _I, _P],
     "pvpu_cc_barriers": [],
     "pvpu_cc_labels": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvpu_component_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -17,6 +17,7 @@ import torch
 import torch.distributed as tdist
 
 TIMEOUT_S = 120.0
+_DEVICE = {"type": None}      # the device type `init` placed this rank on
 
 
 def initialized() -> bool:
@@ -57,6 +58,7 @@ def init(device=None, backend: Optional[str] = None) -> torch.device:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         torch.zeros((), device=dev)         # the context, before the mesh
+    _DEVICE["type"] = dev.type
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if not initialized():
@@ -66,9 +68,19 @@ def init(device=None, backend: Optional[str] = None) -> torch.device:
     return dev
 
 
+def device_type() -> str:
+    """Where this rank's tensors live, "cuda" or "cpu": the device type
+    `init` returned; without it, "cuda" under NCCL, else "cpu"."""
+    if _DEVICE["type"] is not None:
+        return _DEVICE["type"]
+    return "cuda" if initialized() and tdist.get_backend() == "nccl" \
+        else "cpu"
+
+
 def shutdown() -> None:
     if initialized():
         tdist.destroy_process_group()
+    _DEVICE["type"] = None
 
 
 def reduce_metrics(metrics: Dict[str, float]) -> Dict[str, float]:

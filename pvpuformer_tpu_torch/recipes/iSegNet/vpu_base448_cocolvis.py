@@ -13,9 +13,11 @@ checkpoints every 5 epochs then every epoch from 190.
 
 `build_trainer(cfg, trainset, valset)` builds the Trainer from any datasets;
 `main(cfg)` builds the CocoLvis datasets (config.yml's LVIS_v1_PATH) and
-runs. Under torch.distributed.run each rank loads its rows of the global
-batch (--batch-size) and the Trainer places the parameters on the
-("data", "model") mesh by --param-mode (default here "replicated").
+runs. Under torch.distributed.run the ranks form the ("data", "model")
+mesh of --model-parallel M (default 1), each data rank loads its rows of
+the global batch (--batch-size), and the Trainer places the parameters on
+the mesh by --param-mode (default here "replicated"; "tp" and "tp+fsdp"
+split the ViT blocks over "model").
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from pvpuformer_tpu_torch.engine.optimizer import (make_optimizer,
 from pvpuformer_tpu_torch.engine.train_step import TrainConfig
 from pvpuformer_tpu_torch.engine.trainer import Trainer
 from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
-from pvpuformer_tpu_torch.parallel import dist, make_mesh
+from pvpuformer_tpu_torch.parallel import make_mesh
+from pvpuformer_tpu_torch.parallel.mesh import data_rank, data_size
 from pvpuformer_tpu_torch.train import run
 from pvpuformer_tpu_torch.utils.torch_ingest import (load_mae_pretrained,
                                                      load_vit_state)
@@ -79,10 +82,11 @@ def val_kwargs(sampler: MultiPointSampler) -> dict:
                 points_sampler=sampler, epoch_len=VAL_EPOCH_LEN)
 
 
-def loader_shard() -> dict:
-    """This process's share of every global batch (`Loader` arguments)."""
-    return dict(process_index=dist.get_rank(),
-                process_count=dist.get_world_size())
+def loader_shard(mesh) -> dict:
+    """This process's share of every global batch (`Loader` arguments): its
+    data rank on the mesh (the ranks of one model group load the same
+    rows)."""
+    return dict(process_index=data_rank(mesh), process_count=data_size(mesh))
 
 
 def build_trainer(cfg, trainset, valset, init=init_model,
@@ -92,11 +96,14 @@ def build_trainer(cfg, trainset, valset, init=init_model,
     config with train.py's flags). `layerwise_decay` and `param_mode` are
     the defaults of --layerwise-decay and --param-mode."""
     model, mcfg = init(cfg)
+    mesh = make_mesh(model_parallel=cfg.get("model_parallel", 1))
     batch_size = cfg.batch_size if cfg.get("batch_size", -1) > 0 else 32
     train_loader = Loader(trainset, batch_size,
-                          num_workers=cfg.get("workers", 4), **loader_shard())
+                          num_workers=cfg.get("workers", 4),
+                          **loader_shard(mesh))
     val_loader = Loader(valset, batch_size, shuffle=False,
-                        num_workers=cfg.get("workers", 4), **loader_shard())
+                        num_workers=cfg.get("workers", 4),
+                        **loader_shard(mesh))
 
     tcfg = TrainConfig(model=mcfg, max_num_next_clicks=3,
                        iterloss_weights=(1.0, 2.0, 3.0),
@@ -114,9 +121,7 @@ def build_trainer(cfg, trainset, valset, init=init_model,
                    checkpoint_interval=[(0, 5), (190, 1)],
                    metrics=[AdaptiveIoU()], tb_dir=str(cfg.LOGS_PATH),
                    device=cfg.get("device"),
-                   mesh=make_mesh(model_parallel=cfg.get("model_parallel",
-                                                         1)),
-                   param_mode=cfg.get("param_mode") or param_mode)
+                   mesh=mesh, param_mode=cfg.get("param_mode") or param_mode)
 
 
 def main(cfg):

@@ -21,7 +21,8 @@ from pvpuformer_tpu_torch.models.seg_head import HeadConfig
 from pvpuformer_tpu_torch.models.two_way import TwoWayConfig
 from pvpuformer_tpu_torch.models.vit import ViTConfig
 from pvpuformer_tpu_torch.models.vpu import VPUConfig, init_vpu
-from pvpuformer_tpu_torch.parallel import dist, make_mesh
+from pvpuformer_tpu_torch.parallel import make_mesh
+from pvpuformer_tpu_torch.parallel.mesh import data_rank, data_size
 from pvpuformer_tpu_torch.train import run
 
 MODEL_NAME = "vpu_tiny_synthetic"
@@ -53,10 +54,11 @@ def make_trainset() -> SyntheticTrainDataset:
 
 def build_trainer(cfg, trainset, valset=None) -> Trainer:
     model, mcfg = init_model(cfg)
+    mesh = make_mesh(model_parallel=cfg.get("model_parallel", 1))
     batch_size = cfg.batch_size if cfg.get("batch_size", -1) > 0 else 8
     loader = Loader(trainset, batch_size, num_workers=cfg.get("workers", 2),
-                    process_index=dist.get_rank(),
-                    process_count=dist.get_world_size())
+                    process_index=data_rank(mesh),
+                    process_count=data_size(mesh))
     tcfg = TrainConfig(model=mcfg, max_num_next_clicks=3)
     tx = make_optimizer(model, "adam", lr=1e-3, milestones=(1,), gamma=0.5,
                         steps_per_epoch=len(loader))
@@ -65,9 +67,7 @@ def build_trainer(cfg, trainset, valset=None) -> Trainer:
                    checkpoint_dir=cfg.CHECKPOINTS_PATH,
                    checkpoint_interval=1, metrics=[AdaptiveIoU()],
                    device=cfg.get("device"),
-                   mesh=make_mesh(model_parallel=cfg.get("model_parallel",
-                                                         1)),
-                   param_mode=cfg.get("param_mode") or "replicated")
+                   mesh=mesh, param_mode=cfg.get("param_mode") or "replicated")
 
 
 def main(cfg):

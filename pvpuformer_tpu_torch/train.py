@@ -4,10 +4,15 @@
     python -m pvpuformer_tpu_torch.train \
         pvpuformer_tpu_torch/recipes/iSegNet/vpu_base448_cocolvis.py \
         --batch-size 32 --exp-name run1 [--resume-exp 003] [--debug] \
-        [--device cpu] [--param-mode replicated|fsdp]
+        [--device cpu] [--param-mode replicated|tp|fsdp|tp+fsdp]
+        [--model-parallel M]
 
     python -m torch.distributed.run --nproc-per-node 8 \
         -m pvpuformer_tpu_torch.train <recipe> --param-mode fsdp
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m pvpuformer_tpu_torch.train <recipe> --model-parallel 2 \
+        --param-mode tp+fsdp
 
 The recipe defines MODEL_NAME, init_model(cfg) and main(cfg); the model,
 data and schedule live there. Paths come from the config.yml cascade
@@ -19,10 +24,13 @@ given (--platform in the JAX CLI).
 Under torch.distributed.run each process is one rank: the process group
 starts first (parallel/dist.init: NCCL on cuda:LOCAL_RANK, gloo with
 --device cpu), rank 0 makes the experiment and the others join it, and
---batch-size is the global batch, each rank loading its rows. --param-mode
-places the parameters ("replicated": full copies, one gradient all-reduce
-per step; "fsdp": FSDP2 shards; default: the recipe's); the tensor-parallel
-modes and --model-parallel above 1 refuse (not ported, see ROADMAP.md).
+--batch-size is the global batch. The ranks form the ("data", "model")
+mesh of shape (W / M, M), M = --model-parallel (it must divide the number
+of ranks W); each data rank loads its rows, and the M ranks of one model
+group load the same ones. --param-mode places the parameters
+("replicated": full copies, one gradient all-reduce per step; "fsdp":
+FSDP2 shards over "data"; "tp": the ViT blocks split over "model",
+Megatron-style; "tp+fsdp": both; default: the recipe's).
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from pathlib import Path
 import torch.distributed as tdist
 
 from .parallel import dist
-from .parallel.mesh import TP_ITEM, TP_MODES
+from .parallel.mesh import MODES
 from .utils.exp import init_experiment, load_module
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,11 +70,12 @@ def parse_args(argv=None):
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="tensor-parallel ways (only 1: not ported)")
-    p.add_argument("--param-mode", default=None,
-                   choices=["replicated", "fsdp", *TP_MODES],
-                   help="parameter placement over the ranks (default: the "
-                        "recipe's; the tp modes are not ported)")
+                   help="tensor-parallel ways M: the mesh's \"model\" axis "
+                        "(it must divide the number of ranks)")
+    p.add_argument("--param-mode", default=None, choices=MODES,
+                   help="parameter placement over the mesh (default: the "
+                        "recipe's): replicated, tp (ViT blocks split over "
+                        "\"model\"), fsdp (sharded over \"data\"), tp+fsdp")
     p.add_argument("--accumulate-grad", type=int, default=1,
                    help="apply the optimizer every K steps, averaging "
                         "gradients in between (reference train.py "
@@ -75,10 +84,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; cuda:LOCAL_RANK "
                         "under torch.distributed.run)")
-    args = p.parse_args(argv)
-    if args.model_parallel != 1 or args.param_mode in TP_MODES:
-        p.error(TP_ITEM)
-    return args
+    return p.parse_args(argv)
 
 
 def run(cfg, trainer, num_epochs: int) -> None:

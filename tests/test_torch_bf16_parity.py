@@ -52,6 +52,7 @@ from pvpuformer_tpu_torch.models import vit, vpu
 from pvpuformer_tpu_torch.utils.serialization import (config_from_dict,
                                                       params_from_numpy)
 from test_models import tiny_cfg
+from test_torch_model import two_torch_threads  # noqa: F401
 
 ATOL, MEAN = 0.02, 0.004
 BLOCK_SHARE, BLOCK_MEAN = 0.01, 1e-4

@@ -17,7 +17,9 @@ LN+MLP bf16 atol 0.06 / rtol 0.05
 as the JAX kernel's own test, at its operand scale (weights N(0, 0.05)), at
 the ViT-B/L/H widths and 1 to 25088 rows, and bit-identical on repeat; its
 bf16 backward within one bf16 ulp of each gradient's largest entry of
-autograd through the plain version (as the CPU test); the two CC kernels bit-exact (integer max); tiny f32 prompt sessions on the
+autograd through the plain version (as the CPU test); its tensor-parallel
+fc2 launch (b') in f32 within 1e-3 + 1e-4 |x| of its plain version and,
+with the bias and residual added, bit-identical to launch (b); the two CC kernels bit-exact (integer max); tiny f32 prompt sessions on the
 card vs the same sessions on the CPU: identical clicks, IoU within 1e-5.
 The attention backward: f32 1e-4, bf16 atol 1e-2 (~2.5x the error measured
 on an H100 at the training shapes, 3.9e-3), and bit-identical on repeat (no
@@ -244,6 +246,67 @@ def test_fused_ln_mlp_kernel_matches_plain(cuda, m, d, hidden):
     # f32 is a semantic route to the plain ops: no launch
     fused_mlp.fused_ln_mlp(x.float(), ln, mlp)
     assert fused_mlp.fused_ln_mlp.launches == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hidden", [(768, 1536), (768, 768), (1024, 2048),
+                                      (1280, 2560)],
+                         ids=["vit_b_m2", "vit_b_m4", "vit_l_m2", "vit_h_m2"])
+@pytest.mark.parametrize("m", [1, 100, 6272, 25088])
+def test_fc2_partial_kernel_matches_plain(cuda, m, d, hidden):
+    """Launch (b'), the tensor-parallel fc2 at the local hidden widths of
+    M = 2 and 4: f32 within 1e-3 + 1e-4 |x| of `fc2_partial_plain` (the
+    same products, summed in another order), bit-identical on repeat, and
+    its sum + bias + residual rounded once bit-identical to launch (b) on
+    the same h (the same tiles and sums)."""
+    r = np.random.default_rng(1)
+    x = _t(r.normal(size=(m, d)), torch.bfloat16, cuda)
+    ln, mlp = _ln_mlp(r, d, hidden, cuda)
+    h = fused_mlp._launch_fc1(x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b,
+                              1e-6)
+    got = fused_mlp.launch_fc2_partial(h, mlp.fc2.w)
+    assert got.dtype == torch.float32 and got.shape == (m, d)
+    _cmp(got, fused_mlp.fc2_partial_plain(h, mlp.fc2.w), 1e-3, 1e-4)
+    assert torch.equal(got, fused_mlp.launch_fc2_partial(h, mlp.fc2.w))
+    whole = fused_mlp._launch(x, ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b,
+                              mlp.fc2.w, mlp.fc2.b, 1e-6)
+    assert torch.equal((got + mlp.fc2.b.float() + x.float()).to(x.dtype),
+                       whole)
+
+
+@pytest.mark.cuda
+def test_fused_ln_mlp_tp_on_one_rank_is_the_unsplit_block(cuda):
+    """On a process group of one rank (nothing split, the all-reduces the
+    identity) the tensor-parallel LN+MLP is the unsplit one: its forward
+    ((a), (b'), the epilogue) and its backward bit for bit."""
+    import torch.distributed as tdist
+    r = np.random.default_rng(2)
+    x = _t(r.normal(size=(1568, 768)), torch.bfloat16, cuda)
+    ln, mlp = _ln_mlp(r, 768, 3072, cuda, dt=torch.float32)
+    gy = _t(r.normal(size=(1568, 768)), torch.bfloat16, cuda)
+    tdist.init_process_group("gloo", store=tdist.HashStore(), rank=0,
+                             world_size=1)
+    try:
+        outs = []
+        for tp in (False, True):
+            xi = x.clone().requires_grad_()
+            leaves = [ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w,
+                      mlp.fc2.b]
+            for t in leaves:
+                t.requires_grad_().grad = None
+            n0 = (fused_mlp.fused_ln_mlp.launches,
+                  fused_mlp.fused_ln_mlp_tp.launches)
+            y = (fused_mlp.fused_ln_mlp_tp(xi, ln, mlp, None) if tp
+                 else fused_mlp.fused_ln_mlp(xi, ln, mlp))
+            assert (fused_mlp.fused_ln_mlp.launches - n0[0],
+                    fused_mlp.fused_ln_mlp_tp.launches - n0[1]) == \
+                ((0, 1) if tp else (1, 0))
+            y.backward(gy)
+            outs.append([y.detach(), xi.grad] + [t.grad for t in leaves])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    finally:
+        tdist.destroy_process_group()
 
 
 @pytest.mark.cuda

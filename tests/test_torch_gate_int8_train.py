@@ -20,7 +20,7 @@ from pvpuformer_tpu_torch import gate_int8 as tgate
 from pvpuformer_tpu_torch.engine import train_step as tts
 from scripts import gate_int8 as jgate
 from test_torch_grad import jax_tiny_params
-from test_torch_model import port_model
+from test_torch_model import port_model, two_torch_threads  # noqa: F401
 from test_torch_train import jax_train_noise
 
 STEPS = 2

@@ -38,7 +38,7 @@ from pvpuformer_tpu_torch.ops import attention as tattn
 from pvpuformer_tpu_torch.ops import fused_attention as tfa, fused_mlp as tfm
 from pvpuformer_tpu_torch.utils.serialization import jax_name
 from test_models import tiny_cfg
-from test_torch_model import port_model
+from test_torch_model import port_model, two_torch_threads  # noqa: F401
 
 
 def _t(a, dtype=None, grad=False):

@@ -52,6 +52,8 @@ import pvpuformer_tpu_torch.models.zoo.swin_unet
 import pvpuformer_tpu_torch.inference.tiled
 import pvpuformer_tpu_torch.parallel.dist
 import pvpuformer_tpu_torch.parallel.mesh
+import pvpuformer_tpu_torch.parallel.tp
+import pvpuformer_tpu_torch.native
 import pvpuformer_tpu_torch.utils.profiling
 import pvpuformer_tpu_torch.inference.sam_compat
 import pvpuformer_tpu_torch.gate_int8

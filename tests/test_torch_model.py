@@ -22,6 +22,18 @@ from test_models import tiny_cfg
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two intra-op threads for torch in a module that uses this fixture
+    (imported by name): the suite runs in several processes at once, and
+    torch's default of one thread per core in each of them oversubscribes
+    the CPU (tests/test_torch_eval.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_model(jax_params, jax_cfg):
     """JAX params + config -> (port VPUModel with the same weights, config)."""
     cfg = config_from_dict(config_to_dict(jax_cfg))

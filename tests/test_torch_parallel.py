@@ -92,23 +92,29 @@ def _env(**extra):
     return env
 
 
-def run_children(cmds, cwd, envs):
+def run_children(cmds, cwd, envs, wait=True):
     """Start the commands together, wait for each at most CHILD_TIMEOUT
-    seconds (then kill them all); returns their (rc, stdout, stderr)."""
+    seconds (then kill them all); returns their (rc, stdout, stderr), or
+    with wait=False a function that waits so and returns them."""
     procs = [subprocess.Popen(c, cwd=cwd, env=e, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c, e in zip(cmds, envs)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=CHILD_TIMEOUT)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    return outs
+
+    def finish():
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=CHILD_TIMEOUT)
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        return outs
+    if not wait:
+        return finish
+    return finish()
 
 
 def torchrun(args, cwd, nproc=2):
@@ -180,10 +186,11 @@ def runs(tmp_path_factory):
         torch.set_num_threads(threads)
 
 
-def _runs(work):
+def write_inputs(work):
+    """What the workers read: the tiny JAX model (weights.npz) and JAX's
+    draws of each step (noise.npz); returns the global batches."""
     params, jcfg = jax_tiny_params()
     jser.save_checkpoint(work / "weights.npz", params, jcfg)
-    batches = list(global_batches())
     noise = {}
     for s in range(TW.STEPS):
         z = jax_train_noise(jax.random.key(s), TW.GLOBAL_BATCH, 64, 64,
@@ -192,6 +199,11 @@ def _runs(work):
         for k in ("gumbel", "box_offsets", "drop_u"):
             noise[f"{k}{s}"] = z[k].numpy()
     np.savez(work / "noise.npz", **noise)
+    return list(global_batches())
+
+
+def _runs(work):
+    batches = write_inputs(work)
 
     # the one-process port on the concatenated batches
     orig = tts._train_noise
@@ -209,12 +221,14 @@ def _runs(work):
     envs = [_env(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
                  MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
             for r in range(2)]
-    for rc, out, err in run_children(cmds, REPO, envs):
+    finish = run_children(cmds, REPO, envs, wait=False)
+    jax_ref = jax_reference(batches)        # compiles while the ranks run
+    for rc, out, err in finish():
         assert rc == 0, (out[-2000:], err[-4000:])
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(2)]
     return {"work": work, "batches": batches, "ranks": ranks,
-            "jax": jax_reference(batches),
+            "jax": jax_ref,
             "single": (s_losses, s_clicks, s_ious,
                        TW.checksum(single.model.state_dict()))}
 
@@ -394,20 +408,60 @@ def test_eval_mesh_needs_a_process_group_of_its_size(argv, message, capsys,
 
 @pytest.mark.parametrize("call", ["mesh_model_parallel", "shard_tp",
                                   "shard_tp_fsdp", "train_flag"])
-def test_tensor_parallel_refuses_naming_roadmap(call, capsys):
+def test_tensor_parallel_modes_build_their_mesh_and_placement(call):
+    """The tensor-parallel mesh and modes are accepted (they refused before
+    they were ported): `make_mesh(4, model_parallel=2)` is JAX's (2, 2)
+    layout, rank d*2 + m at (d, m); "tp" and "tp+fsdp" cut each backbone
+    block's qkv / fc1 / proj / fc2 (rank 1's part) and, under FSDP, shard
+    it over "data"; train.py parses both flags. Built on rank 1 of a
+    4-rank fake process group (no collective runs)."""
+    import torch.distributed as tdist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
     from pvpuformer_tpu_torch import train as ttrain
-    model = torch.nn.Linear(2, 2)
+    from pvpuformer_tpu_torch.models.vit import ViT, ViTConfig
     if call == "train_flag":
-        with pytest.raises(SystemExit):
-            ttrain.parse_args([str(TINY), "--model-parallel", "2"])
-        assert "ROADMAP.md" in capsys.readouterr().err
+        args = ttrain.parse_args([str(TINY), "--model-parallel", "2",
+                                  "--param-mode", "tp+fsdp"])
+        assert (args.model_parallel, args.param_mode) == (2, "tp+fsdp")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    tdist.init_process_group("fake", store=FakeStore(), rank=1,
+                             world_size=4)
+    try:
+        m = tmesh.make_mesh(4, model_parallel=2)
+        assert m.mesh.tolist() == [[0, 1], [2, 3]]
+        assert m.mesh_dim_names == ("data", "model")
+        assert (tmesh.data_rank(m), tmesh.model_rank(m),
+                tmesh.data_size(m), tmesh.model_size(m)) == (0, 1, 2, 2)
+        with pytest.raises(ValueError, match="does not divide"):
+            tmesh.make_mesh(4, model_parallel=3)
         if call == "mesh_model_parallel":
-            tmesh.make_mesh(2, model_parallel=2)
-        else:
-            tmesh.shard_params(model, None,
-                               "tp" if call == "shard_tp" else "tp+fsdp")
+            return
+        cfg = ViTConfig(img_size=(32, 32), embed_dim=64, depth=4,
+                        num_heads=2)
+        model = torch.nn.Module()
+        model.backbone = ViT(cfg, torch.Generator().manual_seed(0))
+        whole = {n: p.detach().clone()
+                 for n, p in model.named_parameters()}
+        mode = "tp" if call == "shard_tp" else "tp+fsdp"
+        assert tmesh.shard_params(model, m, mode) is model
+        assert tmesh.is_split(model)
+        assert tmesh.is_sharded(model) == (mode == "tp+fsdp")
+        cuts = tmesh.tp_cuts(model)
+        assert len(cuts) == 6 * cfg.depth
+        for n, p in model.named_parameters():
+            local = p.to_local() if hasattr(p, "to_local") else p
+            if n not in cuts:
+                assert tuple(p.shape) == tuple(whole[n].shape), n
+                continue
+            want = tmesh.local_part(whole[n], cuts[n].kind, 1, 2)
+            assert tuple(p.shape) == tuple(want.shape), n
+            if mode == "tp":
+                assert torch.equal(local, want), n
+        blk = model.backbone.blocks[0]
+        assert (blk.tp.rank, blk.tp.size, blk.tp.attn, blk.tp.mlp) == \
+            (1, 2, True, True)
+    finally:
+        tdist.destroy_process_group()
 
 
 def test_without_a_process_group_everything_is_one_device():

@@ -34,7 +34,7 @@ from pvpuformer_tpu_torch.inference import predictor as tpred
 from pvpuformer_tpu_torch.ops import ppue as tppue, rasterize as tras
 from pvpuformer_tpu_torch.utils.serialization import config_from_dict
 from test_models import tiny_cfg
-from test_torch_model import port_model
+from test_torch_model import port_model, two_torch_threads  # noqa: F401
 
 
 def _t(a, dtype=None):

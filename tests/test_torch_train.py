@@ -39,7 +39,7 @@ from pvpuformer_tpu_torch.utils import serialization as tser
 from test_engine import tiny_batch
 from test_models import tiny_cfg
 from test_torch_grad import jax_tiny_params
-from test_torch_model import port_model
+from test_torch_model import port_model, two_torch_threads  # noqa: F401
 
 THR = np.array([0.4, 0.375, 0.425], np.float32)
 

@@ -249,14 +249,30 @@ def test_recipes_take_train_flags():
             args.debug) == (4, 3, "cpu", 2, True)
 
 
-@pytest.mark.parametrize("flag", [["--model-parallel", "2"],
-                                  ["--param-mode", "tp"],
-                                  ["--platform", "cpu"], ["--random-split"],
-                                  ["--param-mode", "tp+fsdp"]])
+@pytest.mark.parametrize("flag", [["--platform", "cpu"], ["--random-split"]])
 def test_train_refuses_flags_of_later_slices(flag):
     with pytest.raises(SystemExit) as e:
         ttrain.parse_args([str(TINY)] + flag)
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize("flag,want", [
+    (["--model-parallel", "2"], (2, "replicated")),
+    (["--param-mode", "tp"], (1, "tp")),
+    (["--param-mode", "tp+fsdp", "--model-parallel", "2"], (2, "tp+fsdp"))])
+def test_train_flags_reach_the_trainers_mesh_and_mode(flag, want, tmp_path,
+                                                      monkeypatch):
+    """--model-parallel reaches the recipe's `make_mesh(model_parallel=)`
+    and --param-mode the Trainer's `param_mode` (the tiny recipe, its
+    mesh and Trainer recorded instead of built)."""
+    from pvpuformer_tpu_torch.recipes.iSegNet import vpu_tiny_synthetic as r
+    args = ttrain.parse_args([str(TINY), "--device", "cpu"] + flag)
+    cfg = texp.EasyCfg(CHECKPOINTS_PATH=tmp_path, **vars(args))
+    seen = {}
+    monkeypatch.setattr(r, "make_mesh", lambda **kw: seen.update(kw))
+    monkeypatch.setattr(r, "Trainer", lambda *a, **kw: seen.update(kw))
+    r.build_trainer(cfg, r.make_trainset())
+    assert (seen["model_parallel"], seen["param_mode"]) == want
 
 
 # ------------------------------------------------------------------ losses

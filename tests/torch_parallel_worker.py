@@ -1,7 +1,7 @@
 """One rank of tests/test_torch_parallel.py's gloo process group on the CPU
 (the port only: this process imports neither JAX nor the JAX package).
 
-    python tests/torch_parallel_worker.py --work DIR
+    python tests/torch_parallel_worker.py --work DIR [--model-parallel M]
 
 with RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the environment, as
 torch.distributed.run sets them. DIR holds what the parent test wrote:
@@ -18,6 +18,14 @@ In one process group (`parallel.dist.init`) the rank then
   * evaluates SyntheticDataset(5 samples, 64 x 64) with
     `BatchedEvaluator(mesh=)`, B = 4 over the ranks, 3 clicks;
 and writes DIR/rank<R>.json.
+
+With --model-parallel M (tests/test_torch_tensor_parallel.py) the ranks form
+the (W / M, M) mesh instead and, in the one mode that its shape names
+("tp" at (1, M), "tp+fsdp" otherwise), train the same 3 steps of the same
+global batches (data rank d's rows of tests/test_torch_parallel.py's
+`global_batches`), save the gathered checkpoint under DIR/<mode>/, load the
+one-process checkpoint back, and record the leaves they cut and a digest of
+every leaf they do not; they write DIR/<mode>_rank<R>.json.
 """
 from __future__ import annotations
 
@@ -146,12 +154,81 @@ def checksum(state) -> float:
     return float(sum(float(t.float().abs().sum()) for t in state.values()))
 
 
+def global_rows(d: int, n: int):
+    """Data rank d of n's rows of the global batches of the 2-shard loader
+    (rank 0's rows, then rank 1's): the same global batches at every n."""
+    shards = [loader(p, 2) for p in range(2)]
+    for _, parts in zip(range(STEPS), zip(*shards)):
+        whole = {k: np.concatenate([b[k] for b in parts]) for k in parts[0]}
+        rows = GLOBAL_BATCH // n
+        yield {k: v[d * rows:(d + 1) * rows] for k, v in whole.items()}
+
+
+def _resume_errors(trainer, want, extra):
+    got = full_state_dict(trainer.model)
+    opt = trainer.tx.state_dict()
+    want_params = params_from_numpy(want)
+    return {"param_err": max(float((got[k] - want_params[k]).abs().max())
+                             for k in want_params),
+            "opt_err": max(float((torch.as_tensor(opt[k])
+                                  - torch.as_tensor(v)).abs().max())
+                           for k, v in extra["opt_state"].items()),
+            "opt_keys": sorted(opt) == sorted(extra["opt_state"]),
+            "step": trainer.global_step}
+
+
+def main_tensor_parallel(work: Path, m: int) -> None:
+    """The --model-parallel run (see the module docstring)."""
+    import hashlib
+    from pvpuformer_tpu_torch.parallel.mesh import (data_rank, data_size,
+                                                    model_rank, tp_cuts)
+    from torch.distributed.tensor import DTensor
+    mesh = make_mesh(model_parallel=m)
+    mode = "tp" if data_size(mesh) == 1 else "tp+fsdp"
+    tts._train_noise = step_noise(work)
+    batches = list(global_rows(data_rank(mesh), data_size(mesh)))
+    model, mcfg = tiny_model(work)
+    trainer, losses, clicks, ious, coll = train(model, mcfg, mesh, mode,
+                                                batches, work / mode)
+    trainer.save(0)
+
+    def local(p):
+        return (p.to_local() if isinstance(p, DTensor) else p).detach()
+    cut = tp_cuts(trainer.model)
+    digests = {n: hashlib.sha256(local(p).numpy().tobytes()).hexdigest()
+               for n, p in trainer.model.named_parameters() if n not in cut}
+    out = {"rank": dist.get_rank(), "data_rank": data_rank(mesh),
+           "model_rank": model_rank(mesh), "mode": mode,
+           "mesh": mesh.mesh.tolist(), "losses": losses, "clicks": clicks,
+           "ious": ious, "collectives": coll, "cut": sorted(cut),
+           "digests": digests,
+           "checksum": checksum(full_state_dict(trainer.model)),
+           "sharded": type(trainer.model).__name__}
+    want, _, _, extra = load_checkpoint(work / "single" /
+                                        "last_checkpoint.npz",
+                                        opt_state=True)
+    model, mcfg = tiny_model(work)
+    t2 = Trainer(model, tts.TrainConfig(model=mcfg), optimizer(model),
+                 None, device="cpu", mesh=mesh, param_mode=mode)
+    t2.resume(work / "single" / "last_checkpoint.npz")
+    out["resume"] = _resume_errors(t2, want, extra)
+    (work / f"{mode}_rank{dist.get_rank()}.json").write_text(json.dumps(out))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--work", required=True)
-    work = Path(ap.parse_args().work)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    args = ap.parse_args()
+    work = Path(args.work)
     torch.set_num_threads(2)
     dist.init("cpu")
+    if args.model_parallel > 1:
+        try:
+            main_tensor_parallel(work, args.model_parallel)
+        finally:
+            dist.shutdown()
+        return
     rank, world = dist.get_rank(), dist.get_world_size()
     mesh = make_mesh()
     tts._train_noise = step_noise(work)
@@ -174,17 +251,7 @@ def main() -> None:
         t2 = Trainer(model, tts.TrainConfig(model=mcfg), optimizer(model),
                      None, device="cpu", mesh=mesh, param_mode=mode)
         t2.resume(single)
-        got = full_state_dict(t2.model)
-        opt = t2.tx.state_dict()
-        want_params = params_from_numpy(want)
-        out["resume"][mode] = {
-            "param_err": max(float((got[k] - want_params[k]).abs().max())
-                             for k in want_params),
-            "opt_err": max(float((torch.as_tensor(opt[k])
-                                  - torch.as_tensor(v)).abs().max())
-                           for k, v in extra["opt_state"].items()),
-            "opt_keys": sorted(opt) == sorted(extra["opt_state"]),
-            "step": t2.global_step}
+        out["resume"][mode] = _resume_errors(t2, want, extra)
 
     from pvpuformer_tpu_torch.inference.batched import BatchedEvaluator
     from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
