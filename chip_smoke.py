@@ -179,7 +179,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
  17. scale-out (parallel/): (a) two ranks on this one card over gloo
      (NCCL refuses two ranks on one card), processes chip_smoke starts
      itself (`--worker scaleout`, `parallel.dist.init(backend="gloo")`):
-     "replicated" ViT-B@448 bf16 training, global batch 8 (4 rows a
+     "replicated" ViT-B@448 bf16 training (width 768, its depth cut to
+     SCALE_DEPTH for time throughout 17a), global batch 8 (4 rows a
      rank), 2 steps of 3 rounds each with a box round: both ranks' losses
      identical and within SCALE_LOSS_TOL of one process on the global
      batch, the wrapper launches per rank; then `BatchedEvaluator(mesh=)`
@@ -189,15 +190,17 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      mesh ("tp" and "tp+fsdp", ViT-B@448 bf16, both ranks on the global
      batch 8, 2 steps of 3 rounds): both ranks' losses identical and
      within SCALE_LOSS_TOL of the one process, the wrapper launches per
-     rank exact (attention forward and backward 12 a round on 6 heads, the
-     tensor-parallel LN+MLP's launches (a) and (b') and its backward 12 a
-     round, the unsplit LN+MLP none), one traced "tp" step per rank
+     rank exact (attention forward and backward depth a round on 6 heads,
+     the tensor-parallel LN+MLP's launches (a) and (b') and its backward
+     depth a round, the unsplit LN+MLP none), one traced "tp" step per rank
      showing (b') on the card, and the gathered "tp+fsdp" checkpoint
      loading strictly in one process (no speed claim: gloo goes through
      the host and the two ranks share the card);
      (b) FSDP at world size 1 under NCCL in a process of
-     `torch.distributed.run --nproc-per-node 1` (`--worker fsdp`): the
-     ViT-L recipe's `build_trainer` in its default mode ("fsdp") against
+     `torch.distributed.run --nproc-per-node 1` (`--worker fsdp`; it and
+     (c) run beside (a), for time): the
+     ViT-L recipe's `build_trainer` (width 1024, its depth cut to
+     FSDP_DEPTH for time) in its default mode ("fsdp") against
      the same recipe unsharded, batch 4 of the synthetic raw source, 2
      steps of 3 rounds from the same batches and draws: losses and the
      checkpoints (whole parameters and Adam moments) within FSDP_TOL, the
@@ -214,7 +217,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      to an in-process `evaluate_dataset` at target 1.01 on the same
      weights; (e) the same with --profile: the same curves, its p50 / p90 /
      p99 and memory line; (f, g) --vis-preds --clicks-limit 5 --model-name
-     X: one PNG per sample of click rows x the panel's height, the header,
+     X (a process beside (a)): one PNG per sample of click rows x the panel's height, the header,
      the first 5 clicks equal to (a)'s; in process, sessions of 20 clicks
      through `Predictor` of (b) the CFR cascade (--cf-n 2 --cf-click 3
      --acf: three forwards a round, every round), (c) --eval-ritm (crop
@@ -264,9 +267,32 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      token shuffle forward of ViT-B@448 bf16 against its plain twins and
      against the identity permutation (TILED_BF16_TOL), 12 attention and
      12 LN+MLP launches a forward; one {"phase20": ...} JSON line;
+ 21. the entry scripts: (a) `python -m pvpuformer_tpu_torch.prepare_data
+     rehearse` (without --skip-large), started before phase 19 and run
+     beside phases 19-21 for time: the fixtures of every real on-disk
+     layout and the BASELINE configurations through six evaluation
+     processes with --random-weights, ViT-B@448 for configs 1-3b, ViT-L@448
+     with --iou-analysis --save-ious on SBD, ViT-H@448 --batched 2 on
+     COCO_MVal, each at rc 0 with its NoC row and seconds (taken so);
+     (b) the
+     train-then-evaluate demo (`demo_train_eval_synthetic`) at its
+     defaults in this process: 40 epochs of the tiny f32 VPU (loss and
+     AdaptiveIoU every 8), then NoC@50 / NoC@80 of the random, trained and
+     trained+int8 weights; the trained NoC@50 below the random one and the
+     last logged AdaptiveIoU DEMO_IOU_GAIN above the first; the launches of
+     its training steps (as phase 9 counts them) and of each row's eager
+     and captured rounds (depth attention and one min-plus a round); (c)
+     `hbm_fit` at its defaults in this process (ViT-B@448 bf16, batch 32,
+     num_iters 1, 2, 3): every variant fits, its launches as phase 9
+     counts them, its num_iters=3 peak beside phase 9's (HBM_FIT_TOL,
+     reported); (d) `python -m pvpuformer_tpu_torch.bench_loader` reduced
+     (LOADER_BENCH), after the rehearsal has ended: on-disk records/s of
+     thread and process workers beside the recipe's demand; one
+     {"phase21": ...} JSON line;
 then one JSON line of kernel summaries (launches: the wrapper counts
-summed over the paths of phases 5, 7, 9, 15, 16, 17, 18, 19 and 20), the
-card's name and power limit, and, last, {"ok": true, "device": ...}.
+summed over the paths of phases 5, 7, 9, 15, 16, 17, 18, 19, 20 and 21's
+in-process parts), the card's name and power limit, and, last, {"ok":
+true, "device": ...}.
 
 LAUNCH CHECKS. A kernel wrapper counts its calls where it launches: in an
 eager round and in the capture of a round, which records the launch into
@@ -292,22 +318,24 @@ click round of PlainVit ViT-B@448 and of each zoo family at its default
 config the same way (`profile_families`).
 
 For time, the graph-cache workload runs two passes of sessions of 1, 3
-and 10 clicks, and phase 11 traces 2 of its sequential run's 21 sessions
-(tracing all 21 cost phase 11 59-62 s of its 197-200 s). On an NVIDIA
-H100 80GB HBM3 at 700 W the whole script took 862-985 s of its 1200 s
-limit with phases 1-19 and 925.7 s with phase 20, the host moving the
-phases by 12-17% between runs: phase 17 121-175 s (its FSDP process
-builds ViT-L twice on the host), phase 18 113-137 s (three CLI processes
-of about 14 s each), phase 11 122-140 s, phase 19 81-97 s (the gate's
-six runs 56-65 s), phase 5 80-92 s (two bench processes), phase 20 about
-20 s, and 185-238 s in all went to the launch checks' profiler windows.
-Each phase's seconds are logged as it ends, and the last lines print the
-whole script's.
+and 10 clicks, phase 11 traces 2 of its sequential run's 21 sessions
+(tracing all 21 cost phase 11 59-62 s of its 197-200 s), 17a runs ViT-B
+at depth SCALE_DEPTH and 17b the ViT-L recipe at depth FSDP_DEPTH, 17b
+and 17c run beside 17a, 18 (f, g) beside 18 (a), and phase 21's
+rehearsal beside phases 19-21: none of those runs is a speed claim. On
+an NVIDIA H100 80GB HBM3 at 700 W the whole script took 993.5 s with
+phases 1-20 at full depth, and with phase 21 1031.9 s before the last
+two overlaps and 1246.3 s on a host that ran every phase 10-110%
+slower; the host moves the phases by 12-21% between calls. Phases 11,
+17, 18 and 19 take 85-190 s each, and 185-238 s in all go to the launch
+checks' profiler windows. Each phase's seconds are logged as it ends,
+and the last lines print the whole script's.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -1662,6 +1690,7 @@ def phase_train_parity(dev):
 
 
 TRAIN_BATCH = 32          # vpu_base448_cocolvis.py's batch size
+TRAIN_PEAK_GIB = {}       # phase 9's peak, held against phase 21's hbm_fit
 
 
 class _Replay:
@@ -1781,7 +1810,8 @@ def _train_run(dev, card, cfg, seed, plan, b):
     finally:
         ttr.train_step = train_step
     counts = _counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gb = TRAIN_PEAK_GIB["phase9"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
     rounds = sum(len(t) for t in plan)
     boxes = sum(t.count(1) for t in plan)
     want = {"fused_attention": depth * rounds,
@@ -2601,19 +2631,48 @@ LOADER_WORKERS = 4        # train.py's default --workers
 WAIT_SHARE = 0.05         # phase 13b: the loader keeps ahead below this
 
 
-def _subprocess(args, cwd, what: str, stdin: str = ""):
-    """`python -m <args>` from `cwd` with this checkout on the path and
-    `stdin` as its input: its output, after a 0 exit code."""
+def _start(args, cwd):
+    """`python -m <args>` started from `cwd` with this checkout on the path,
+    leading a session of its own: (the process, its start time)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    t = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
-                         input=stdin, capture_output=True, text=True,
-                         timeout=600)
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=cwd, env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True), time.perf_counter()
+
+
+def _stop(started) -> None:
+    """Kill every process of a started process's session, unless it has
+    ended."""
+    import signal
+    proc, _ = started
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+
+
+def _finish(started, what: str, stdin: str = "", timeout: int = 600):
+    """A started process's output, after a 0 exit code, and its seconds
+    from its start; `stdin` is its input. At `timeout` seconds its
+    session's every process is killed (the rehearsal of phase 21 starts
+    processes of its own)."""
+    proc, t = started
+    try:
+        stdout, stderr = proc.communicate(stdin, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _stop(started)
+        raise AssertionError(f"{what} ran past {timeout} s and was killed")
     secs = time.perf_counter() - t
-    if out.returncode != 0:
-        raise AssertionError(f"{what} exited {out.returncode}:\n"
-                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    return out.stdout, secs
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    return stdout, secs
+
+
+def _subprocess(args, cwd, what: str, stdin: str = "", timeout: int = 600):
+    """`python -m <args>` from `cwd` (`_start`, `_finish`): its output and
+    seconds."""
+    return _finish(_start(args, cwd), what, stdin, timeout)
 
 
 def phase_entry(dev):
@@ -3768,7 +3827,9 @@ SCALE_BATCH = 8           # 17a: the global batch, 4 rows a rank
 SCALE_STEPS = 2           # 17a / 17b: steps of SCALE_ITERS rounds
 SCALE_ITERS = 3
 SCALE_EVAL_B = 16         # 17a: sessions a chunk, 8 a rank
+SCALE_DEPTH = 4           # 17a: ViT-B@448 (width 768) cut to 4 blocks
 FSDP_BATCH = 4            # 17b: the ViT-L recipe's batch
+FSDP_DEPTH = 8            # 17b: the ViT-L recipe's 24 blocks cut to 8
 CHILD_TIMEOUT = 600       # s: each process phase 17 starts
 # 17a, 2 gloo ranks against one process on the global batch: |dloss| of
 # each step; 7.530e-03 measured on losses of 14.5 and 17.4 (H100 80GB HBM3,
@@ -3860,18 +3921,28 @@ def _steps(trainer, batch, seeds, dev, mesh):
         k: v / len(seeds) for k, v in coll.items() if v}
 
 
+def _scale_config():
+    """17a's model: ViT-B@448 bf16, its depth cut to SCALE_DEPTH for time
+    (the widths, heads and the window / global blocks' layout kept)."""
+    import torch
+    from pvpuformer_tpu_torch.models.vpu import vpu_base_config
+    mcfg = vpu_base_config(dtype=torch.bfloat16)
+    return mcfg.replace(backbone=dataclasses.replace(mcfg.backbone,
+                                                     depth=SCALE_DEPTH))
+
+
 def _scale_train(dev, mesh):
-    """17a's training: ViT-B@448 bf16 (seeded weights, Adam 5e-5), the
+    """17a's training: `_scale_config()` (seeded weights, Adam 5e-5), the
     global batch SCALE_BATCH (this rank's rows under a mesh),
     "replicated", SCALE_STEPS steps."""
     import torch
     from pvpuformer_tpu_torch.engine.optimizer import make_optimizer
     from pvpuformer_tpu_torch.engine.train_step import TrainConfig
     from pvpuformer_tpu_torch.engine.trainer import Trainer
-    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
     from pvpuformer_tpu_torch.parallel.mesh import shard_batch
 
-    cfg = TrainConfig(model=vpu_base_config(dtype=torch.bfloat16))
+    cfg = TrainConfig(model=_scale_config())
     model = init_vpu(cfg.model, torch.Generator().manual_seed(0), dev)
     trainer = Trainer(model, cfg, make_optimizer(model, "adam", lr=5e-5),
                       None, device=dev, mesh=mesh, param_mode="replicated")
@@ -3887,16 +3958,16 @@ def _scale_train(dev, mesh):
 
 
 def _scale_eval(dev, mesh, b: int = SCALE_EVAL_B):
-    """17a's evaluation: ViT-B@448 bf16, SCALE_EVAL_B objects of Synthetic
+    """17a's evaluation: `_scale_config()`, SCALE_EVAL_B objects of Synthetic
     448 x 448 x EVAL_CLICKS clicks in chunks of B = b (each split over the
     ranks under a mesh)."""
     import torch
     from pvpuformer_tpu_torch.inference.batched import BatchedEvaluator
     from pvpuformer_tpu_torch.inference.datasets import SyntheticDataset
     from pvpuformer_tpu_torch.inference.predictor import PredictorConfig
-    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
 
-    mcfg = vpu_base_config(dtype=torch.bfloat16)
+    mcfg = _scale_config()
     model = init_vpu(mcfg, torch.Generator().manual_seed(0), dev)
     pcfg = PredictorConfig(model=mcfg, target_size=mcfg.crop_size,
                            with_flip=True)
@@ -3917,7 +3988,7 @@ TP_MODES = ("tp", "tp+fsdp")    # 17a's TP leg, on the (1, 2) mesh
 
 
 def _scale_tp(dev, out_dir: str):
-    """17a's tensor-parallel leg, in the same two gloo ranks: ViT-B@448 bf16
+    """17a's tensor-parallel leg, in the same two gloo ranks: `_scale_config()`
     (seeded weights, Adam 5e-5) on the (1, 2) mesh, both ranks on the
     global batch SCALE_BATCH, SCALE_STEPS steps of SCALE_ITERS rounds in
     each of TP_MODES: per mode the losses, ms per step, wrapper counts
@@ -3931,7 +4002,7 @@ def _scale_tp(dev, out_dir: str):
     from pvpuformer_tpu_torch.engine.train_step import TrainConfig
     from pvpuformer_tpu_torch.engine.trainer import Trainer
     from pvpuformer_tpu_torch.models import vit
-    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+    from pvpuformer_tpu_torch.models.vpu import init_vpu
     from pvpuformer_tpu_torch.parallel import dist
     from pvpuformer_tpu_torch.parallel.mesh import (full_state_dict,
                                                     is_sharded, make_mesh,
@@ -3948,7 +4019,7 @@ def _scale_tp(dev, out_dir: str):
         return attn(q, k, v, *a, **kw)
     for mode in TP_MODES:
         t0 = time.perf_counter()
-        cfg = TrainConfig(model=vpu_base_config(dtype=torch.bfloat16))
+        cfg = TrainConfig(model=_scale_config())
         model = init_vpu(cfg.model, torch.Generator().manual_seed(0), dev)
         trainer = Trainer(model, cfg, make_optimizer(model, "adam", lr=5e-5),
                           None, device=dev, mesh=mesh, param_mode=mode)
@@ -4015,8 +4086,8 @@ def worker_scaleout(out_dir: str) -> None:
 
 def worker_fsdp(out_dir: str) -> None:
     """17b, the one rank of `torch.distributed.run --nproc-per-node 1`
-    under NCCL: the ViT-L recipe's Trainer (`build_trainer`) over the
-    synthetic raw source, unsharded ("replicated" on the one-rank mesh)
+    under NCCL: the ViT-L recipe's Trainer (`build_trainer`; the ViT at
+    width 1024, FSDP_DEPTH blocks) over the synthetic raw source, unsharded ("replicated" on the one-rank mesh)
     and in its default mode ("fsdp"), SCALE_STEPS steps each from the same
     batches and draws; the FSDP Trainer's checkpoint against the unsharded
     Trainer's state (what its `save` would write: `full_state_dict` and
@@ -4031,9 +4102,18 @@ def worker_fsdp(out_dir: str) -> None:
     from pvpuformer_tpu_torch.utils.serialization import jax_name
     from pvpuformer_tpu_torch.recipes.iSegNet import (
         vpu_base448_cocolvis as base, vpu_large448_cocolvis as recipe)
+    from pvpuformer_tpu_torch.models.vpu import vpu_large_config
     from pvpuformer_tpu_torch.utils.exp import EasyCfg
     from pvpuformer_tpu_torch.utils.serialization import load_checkpoint
 
+    def cut_large(**kw):            # width 1024 kept, depth cut for time
+        mcfg = vpu_large_config(**kw)
+        return mcfg.replace(backbone=dataclasses.replace(mcfg.backbone,
+                                                         depth=FSDP_DEPTH))
+
+    recipe.init_model = functools.partial(base.init_model,
+                                          make_config=cut_large,
+                                          mae_key="MAE_LARGE")
     dev = dist.init()
     try:
         sampler = base.points_sampler()
@@ -4162,23 +4242,23 @@ def _children(cmds, envs, what: str):
     return outs
 
 
-def _free_port() -> int:
+def _free_ports(n: int):
+    """n distinct free ports of 127.0.0.1 (held together while chosen)."""
+    import contextlib
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
 
 
-def _torchrun(args, what: str):
-    """`python -m torch.distributed.run --nproc-per-node 1 <args>` on a
-    free port of 127.0.0.1: its stdout and seconds."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    t = time.perf_counter()
-    out = _children([[sys.executable, "-m", "torch.distributed.run",
-                      "--nproc-per-node=1", "--master-addr=127.0.0.1",
-                      f"--master-port={_free_port()}", *args]], [env],
-                    what)[0]
-    return out, time.perf_counter() - t
+def _start_torchrun(args, port: int):
+    """`python -m torch.distributed.run --nproc-per-node 1 <args>` started
+    on `port` of 127.0.0.1 (`_start`; `_finish` reads its stdout)."""
+    return _start(["torch.distributed.run", "--nproc-per-node=1",
+                   "--master-addr=127.0.0.1", f"--master-port={port}",
+                   *args], ROOT)
 
 
 def _noise_cost(card: str) -> None:
@@ -4269,7 +4349,8 @@ def _check_tp(tp, one, ckpt, card: str) -> None:
                      f"{ckpt['moments']} exp_avg leaves of the parameters' "
                      f"shapes, step {ckpt['step']})")
         _log(f"  17a TP leg, mesh {tp[0]['mesh']} (2 gloo ranks on cuda:0, "
-             f"M = 2), {mode}, ViT-B@448 bf16, global batch {SCALE_BATCH} "
+             f"M = 2), {mode}, ViT-B@448 bf16 at depth {SCALE_DEPTH}, "
+             f"global batch {SCALE_BATCH} "
              f"on both ranks, {SCALE_STEPS} steps x {SCALE_ITERS} rounds: "
              f"losses rank 0 {a['losses']}, rank 1 {b['losses']}; one "
              f"process {one['losses']}; max |dloss| {dloss:.3e} (tol "
@@ -4297,25 +4378,68 @@ def phase_scaleout(dev, card: str):
     its distributed runs: both gloo ranks' steps and evaluation, the FSDP
     steps."""
     import tempfile
-    import torch
 
     t_phase = time.perf_counter()
-    launches = {}
+    port_a, port_b, port_c = _free_ports(3)
     base_env = dict(os.environ, PYTHONPATH=ROOT, WORLD_SIZE="2",
                     LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                    MASTER_PORT=str(_free_port()))
+                    MASTER_PORT=str(port_a))
     with tempfile.TemporaryDirectory() as tmp:
-        t = time.perf_counter()
-        _children([[sys.executable, os.path.abspath(__file__), "--worker",
-                    "scaleout", tmp]] * 2,
-                  [dict(base_env, RANK=str(r)) for r in range(2)],
-                  "the 17a gloo ranks")
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        secs = time.perf_counter() - t
-        tp_ckpt = _tp_checkpoint(os.path.join(tmp, "tp_fsdp.npz"))
+        dirs = [os.path.join(tmp, d) for d in ("a", "b", "c")]
+        for d in dirs:
+            os.mkdir(d)
+        # 17b and 17c run beside 17a, for time (no speed claim here)
+        fsdp = _start_torchrun([os.path.abspath(__file__), "--worker",
+                                "fsdp", dirs[1]], port_b)
+        mesh_cli = _start_torchrun(
+            ["-m", "pvpuformer_tpu_torch.evaluate", "--random-weights",
+             "--datasets", "Synthetic", "--n-clicks", "5", "--batched",
+             str(SCALE_EVAL_B), "--eval-mesh", "1", "--logs-path", dirs[2]],
+            port_c)
+        try:
+            launches = _scale_ranks(dev, card, base_env, dirs[0])
+            _, secs = _finish(fsdp, "the 17b FSDP rank",
+                              timeout=CHILD_TIMEOUT)
+            with open(os.path.join(dirs[1], "fsdp.json")) as f:
+                fs = json.load(f)
+            out, secs_c = _finish(mesh_cli, "evaluate --eval-mesh 1",
+                                  timeout=CHILD_TIMEOUT)
+        except BaseException:
+            _stop(fsdp)
+            _stop(mesh_cli)
+            raise
+    _check_fsdp(fs, secs, card)
+    _add(launches, fs["fsdp"]["launches"])
+    table = [ln for ln in out.splitlines() if ln.startswith("|")]
+    _log(f"  17c python -m torch.distributed.run --nproc-per-node 1 -m "
+         f"pvpuformer_tpu_torch.evaluate --random-weights --datasets "
+         f"Synthetic --n-clicks 5 --batched {SCALE_EVAL_B} --eval-mesh 1: rc "
+         f"0 in {secs_c:.1f} s (beside 17a and 17b)")
+    for ln in table:
+        _log(f"    {ln}")
+    if not any("| Synthetic |" in ln for ln in table):
+        raise AssertionError("evaluate --eval-mesh 1 printed no NoC table")
+    _log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _scale_ranks(dev, card: str, base_env, tmp: str):
+    """17a: the two gloo ranks (`--worker scaleout`), then this process's
+    one-process references and the checks; returns the ranks' wrapper
+    counts."""
+    import torch
+    launches = {}
+    t = time.perf_counter()
+    _children([[sys.executable, os.path.abspath(__file__), "--worker",
+                "scaleout", tmp]] * 2,
+              [dict(base_env, RANK=str(r)) for r in range(2)],
+              "the 17a gloo ranks")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    secs = time.perf_counter() - t
+    tp_ckpt = _tp_checkpoint(os.path.join(tmp, "tp_fsdp.npz"))
     one = _scale_train(dev, None)
     r0, r1 = (r["train"] for r in ranks)
     dloss = max(abs(a - b) for a, b in zip(r0["losses"], one["losses"]))
@@ -4325,7 +4449,8 @@ def phase_scaleout(dev, card: str):
           and r0["rows"] == r1["rows"] == SCALE_BATCH // 2
           and all(r["launches"][k] == v for r in (r0, r1)
                   for k, v in want.items()))
-    _log(f"  17a 2 gloo ranks on cuda:0, replicated, ViT-B@448 bf16, global "
+    _log(f"  17a 2 gloo ranks on cuda:0, replicated, ViT-B@448 bf16 at "
+         f"depth {SCALE_DEPTH}, global "
          f"batch {SCALE_BATCH} ({r0['rows']} rows a rank), {SCALE_STEPS} "
          f"steps x {SCALE_ITERS} rounds: losses rank 0 {r0['losses']}, rank "
          f"1 {r1['losses']}; one process {one['losses']}; max |dloss| "
@@ -4382,12 +4507,11 @@ def phase_scaleout(dev, card: str):
             _add(launches, r["tp"][mode]["launches"])
     del one, single, half
     torch.cuda.empty_cache()
+    return launches
 
-    with tempfile.TemporaryDirectory() as tmp:
-        _, secs = _torchrun([os.path.abspath(__file__), "--worker", "fsdp",
-                             tmp], "the 17b FSDP rank")
-        with open(os.path.join(tmp, "fsdp.json")) as f:
-            fs = json.load(f)
+
+def _check_fsdp(fs, secs: float, card: str) -> None:
+    """17b's checks on its rank's fsdp.json."""
     a, b, ck = fs["replicated"], fs["fsdp"], fs["ckpt"]
     boxes = sum(t.count(1) for t in b["types"][:1])
     want = _scale_launches(b["depth"], b["types"])
@@ -4401,8 +4525,8 @@ def phase_scaleout(dev, card: str):
           and all(seen[k] > 0 for k in FSDP_KERNELS[:5])
           and (boxes == 0 or all(seen[k] > 0 for k in FSDP_KERNELS[5:])))
     _log(f"  17b FSDP at world size 1 under NCCL (torch.distributed.run "
-         f"--nproc-per-node 1), the ViT-L recipe's build_trainer in its "
-         f"default mode ({b['param_mode']}), batch {FSDP_BATCH}, "
+         f"--nproc-per-node 1), the ViT-L recipe's build_trainer (depth "
+         f"{b['depth']} of 24) in its default mode ({b['param_mode']}), batch {FSDP_BATCH}, "
          f"{SCALE_STEPS} steps x {SCALE_ITERS} rounds: losses fsdp "
          f"{b['losses']}, unsharded {a['losses']}, max |dloss| {dloss:.3e} "
          f"(tol {FSDP_TOL}); the FSDP checkpoint against the unsharded "
@@ -4417,30 +4541,11 @@ def phase_scaleout(dev, card: str):
          f"per step fsdp {b['collectives_per_step']}; wrapper launches "
          f"{ {k: v for k, v in b['launches'].items() if v} } (want {want}); "
          f"one more FSDP step traced (types {b['types'][:1]}): device "
-         f"launches {seen}; the process {secs:.1f} s ({card}) "
-         f"{'ok' if ok else 'FAIL'}")
+         f"launches {seen}; the process {secs:.1f} s, beside 17a "
+         f"({card}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("17b: the FSDP step disagrees with the "
                              "unsharded one, or its kernels did not launch")
-    _add(launches, b["launches"])
-
-    with tempfile.TemporaryDirectory() as tmp:
-        out, secs = _torchrun(
-            ["-m", "pvpuformer_tpu_torch.evaluate", "--random-weights",
-             "--datasets", "Synthetic", "--n-clicks", "5", "--batched",
-             str(SCALE_EVAL_B), "--eval-mesh", "1", "--logs-path", tmp],
-            "evaluate --eval-mesh 1")
-    table = [ln for ln in out.splitlines() if ln.startswith("|")]
-    _log(f"  17c python -m torch.distributed.run --nproc-per-node 1 -m "
-         f"pvpuformer_tpu_torch.evaluate --random-weights --datasets "
-         f"Synthetic --n-clicks 5 --batched {SCALE_EVAL_B} --eval-mesh 1: rc "
-         f"0 in {secs:.1f} s")
-    for ln in table:
-        _log(f"    {ln}")
-    if not any("| Synthetic |" in ln for ln in table):
-        raise AssertionError("evaluate --eval-mesh 1 printed no NoC table")
-    _log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
-    return launches
 
 
 EVAL_CLI = "pvpuformer_tpu_torch.evaluate"
@@ -4565,12 +4670,25 @@ def phase_eval_cli(dev, card: str):
     depth = mcfg.backbone.depth
     graphs.clear()
     with tempfile.TemporaryDirectory() as tmp:
-        # --- (a) the repo launcher's command, as a process ---
-        logs_a = os.path.join(tmp, "a")
-        text, secs = _subprocess(
+        # --- (a) the repo launcher's command, as a process, and beside it
+        # (f, g), checked below (for time; neither is timed) ---
+        logs_a, logs_f = os.path.join(tmp, "a"), os.path.join(tmp, "f")
+        vis_cli = _start(
             [EVAL_CLI, "--random-weights", "--datasets", "Synthetic",
-             "--limit", str(CLI_LIMIT), "--logs-path", logs_a] + LAUNCHER,
-            tmp, "the launcher's command")
+             "--limit", str(CLI_LIMIT), "--logs-path", logs_f,
+             "--n-clicks", str(CLI_VIS_CLICKS), "--iou-analysis",
+             "--vis-preds", "--clicks-limit", str(CLI_CLICKS_LIMIT),
+             "--model-name", "vitb448-random"], tmp)
+        try:
+            text, secs = _subprocess(
+                [EVAL_CLI, "--random-weights", "--datasets", "Synthetic",
+                 "--limit", str(CLI_LIMIT), "--logs-path", logs_a]
+                + LAUNCHER, tmp, "the launcher's command")
+            text_f, secs_f = _finish(
+                vis_cli, "--vis-preds --clicks-limit --model-name")
+        except BaseException:
+            _stop(vis_cli)
+            raise
         name = "Synthetic_cvpr_NoBRS_20.pickle"
         got = _cli_curves(logs_a, name)
         crop, skip = cli.protocol_crop(cli.parse_args(LAUNCHER), "Synthetic",
@@ -4591,7 +4709,7 @@ def phase_eval_cli(dev, card: str):
                  if ln.startswith(("|", "mIoU@k", "saved IoU"))]
         _log(f"  (a) python -m {EVAL_CLI} --random-weights --datasets "
              f"Synthetic --limit {CLI_LIMIT} {' '.join(LAUNCHER)}: rc 0 in "
-             f"{secs:.1f} s; curves against an in-process evaluate_dataset "
+             f"{secs:.1f} s (beside (f, g)); curves against an in-process evaluate_dataset "
              f"at target 1.01 on the same weights: "
              f"{'bit-identical' if same else 'DIFFER'}")
         for ln in table:
@@ -4629,14 +4747,7 @@ def phase_eval_cli(dev, card: str):
         out["profile"] = dict(summary, memory=mem[len("memory: "):])
 
         # --- (f) --vis-preds and (g) --clicks-limit / --model-name ---
-        logs_f = os.path.join(tmp, "f")
-        text, secs = _subprocess(
-            [EVAL_CLI, "--random-weights", "--datasets", "Synthetic",
-             "--limit", str(CLI_LIMIT), "--logs-path", logs_f,
-             "--n-clicks", str(CLI_VIS_CLICKS), "--iou-analysis",
-             "--vis-preds", "--clicks-limit", str(CLI_CLICKS_LIMIT),
-             "--model-name", "vitb448-random"], tmp,
-            "--vis-preds --clicks-limit --model-name")
+        text, secs = text_f, secs_f
         fgot = _cli_curves(logs_f, f"Synthetic_cvpr_NoBRS_"
                                    f"{CLI_VIS_CLICKS}.pickle")
         vis = os.path.join(logs_f, "vis", "Synthetic")
@@ -4655,7 +4766,7 @@ def phase_eval_cli(dev, card: str):
               and all(len(a) == CLI_VIS_CLICKS for a in fgot))
         _log(f"  (f, g) --vis-preds --clicks-limit {CLI_CLICKS_LIMIT} "
              f"--model-name vitb448-random --n-clicks {CLI_VIS_CLICKS}: rc 0 "
-             f"in {secs:.1f} s; PNGs {pngs} of {shapes} (click rows x "
+             f"in {secs:.1f} s (beside (a)); PNGs {pngs} of {shapes} (click rows x "
              f"2 x {h}, 3 x {w}); header carries the name; the first "
              f"{CLI_CLICKS_LIMIT} clicks' IoUs equal (a)'s: {early} "
              f"{'ok' if ok else 'FAIL'}")
@@ -5723,6 +5834,247 @@ def phase_models(dev, card: str):
     return total
 
 
+# phase 21: the entry scripts
+REHEARSAL_RUNS = 6        # prepare_data rehearse without --skip-large
+REHEARSAL_TIMEOUT = 900   # s: the rehearsal's six evaluation processes
+DEMO_IOU_GAIN = 0.3       # the demo's last logged AdaptiveIoU over its first
+HBM_FIT_TOL = 0.10        # hbm_fit's num_iters=3 peak against phase 9's
+LOADER_BENCH = ["--images", "16", "--batches", "3", "--workers", "4",
+                "--types", "thread", "process"]
+
+
+def _rehearsal(out: str):
+    """prepare_data rehearse's output -> [(title, seconds, NoC row)]."""
+    runs = []
+    for part in out.split("--- rehearsing BASELINE ")[1:]:
+        lines = part.splitlines()
+        rows = [ln for ln in lines if ln.startswith("|") and "NoBRS" in ln]
+        secs = [float(ln.split(" in ")[1].split()[0]) for ln in lines
+                if ln.startswith("(rc 0 in ")]
+        runs.append((lines[0], secs[0] if secs else None,
+                     rows[-1] if rows else None))
+    return runs
+
+
+def _demo_train_counts(cfg, steps, depth: int):
+    """The wrapper calls of the demo's training steps [(generator seed,
+    num_iters)] (phase 9's count; f32, so no LN+MLP kernel)."""
+    import torch
+    from pvpuformer_tpu_torch.engine.train_step import _train_noise
+    types = [_train_noise(cfg, torch.Generator().manual_seed(seed), 1, 1, 1,
+                          ni)["prompt_types"] for seed, ni in steps]
+    return _scale_launches(depth, types) | {"fused_ln_mlp": 0,
+                                            "fused_ln_mlp_bwd": 0}
+
+
+def _demo_and_fit(dev, card: str, rec, times, total):
+    """Phase 21 (b) and (c), in this process: the demo, then hbm_fit;
+    their results go into `rec` and `times`, their wrapper counts into
+    `total`."""
+    import copy
+    import torch
+    from pvpuformer_tpu_torch import demo_train_eval_synthetic as demo
+    from pvpuformer_tpu_torch import hbm_fit
+    from pvpuformer_tpu_torch.engine import trainer as ttr
+    from pvpuformer_tpu_torch.engine.train_step import (TrainConfig,
+                                                        _train_noise)
+    from pvpuformer_tpu_torch.inference import graphs
+    from pvpuformer_tpu_torch.models.vpu import init_vpu, vpu_base_config
+
+    # (b) the demo
+    t = time.perf_counter()
+    mcfg = demo.model_config()
+    model = init_vpu(mcfg, torch.Generator().manual_seed(0), "cpu")
+    initial = copy.deepcopy(model)
+    steps, step = [], ttr.train_step
+
+    def rec_step(*a, **kw):
+        steps.append((a[3].initial_seed(), kw["num_iters"]))
+        return step(*a, **kw)
+
+    ttr.train_step = rec_step
+    _zero_counts()
+    try:
+        curve = demo.train(model, device=dev,
+                           log=lambda ln: _log(f"  demo {ln}"))
+    finally:
+        ttr.train_step = step
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = dict.fromkeys(counts, 0) | _demo_train_counts(
+        TrainConfig(model=mcfg), steps, mcfg.backbone.depth)
+    times["21b_train"] = time.perf_counter() - t
+    _log(f"  demo training: {len(steps)} steps, "
+         f"{sum(n for _, n in steps)} rounds in "
+         f"{times['21b_train']:.1f} s; launches "
+         f"{ {k: v for k, v in counts.items() if v} } expected "
+         f"{ {k: v for k, v in want.items() if v} }")
+    if counts != want:
+        raise AssertionError("the demo's training launched the kernels "
+                             "other than its steps call them")
+    total.update(counts)
+    t = time.perf_counter()
+    rows = {}
+    for name, m, int8 in (("random", initial, False),
+                          ("trained", model, False),
+                          ("trained+int8", model, True)):
+        r0 = dict(graphs.rounds)
+        _zero_counts()
+        noc, over, ious = demo.noc_row(m, int8, device=dev)
+        torch.cuda.synchronize()
+        counts = _counts()
+        called = sum(graphs.rounds[k] - r0[k]
+                     for k in ("eager", "captured"))
+        want = dict.fromkeys(counts, 0) | {
+            "fused_attention": mcfg.backbone.depth * called,
+            "minplus_rows": called}
+        got = {k: v for k, v in counts.items() if v}
+        final = [round(float(a[-1]), 3) for a in ious]
+        rows[name] = {"noc50": float(noc[0]), "noc80": float(noc[1]),
+                      "over80": int(over[1]), "final": final,
+                      "launches": got}
+        _log(f"  demo {name}: NoC@50 {noc[0]:.2f} NoC@80 {noc[1]:.2f} "
+             f">=10@80 {over[1]} final IoUs {final}; launches {got} "
+             f"over {called} eager / captured rounds (expected "
+             f"{ {k: v for k, v in want.items() if v} })")
+        if counts != want or not all(np.isfinite(a).all() for a in ious):
+            raise AssertionError(f"the demo's {name} row: launches {got}"
+                                 f" (want {want}) or a curve not finite")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    times["21b_eval"] = time.perf_counter() - t
+    ious_logged = [c["AdaptiveIoU"] for c in curve]
+    gain = ious_logged[-1] - ious_logged[0]
+    rec["demo"] = {"curve": [{"epoch": c["epoch"], "loss": c["loss"],
+                              "AdaptiveIoU": c["AdaptiveIoU"]}
+                             for c in curve], "rows": rows,
+                   "steps": len(steps)}
+    ok = (rows["trained"]["noc50"] < rows["random"]["noc50"]
+          and gain >= DEMO_IOU_GAIN)
+    _log(f"  demo: AdaptiveIoU {ious_logged[0]:.3f} -> "
+         f"{ious_logged[-1]:.3f} (+{gain:.3f}, want >= {DEMO_IOU_GAIN}); "
+         f"NoC@50 trained {rows['trained']['noc50']:.2f} against random "
+         f"{rows['random']['noc50']:.2f} {'ok' if ok else 'FAIL'} "
+         f"({card})")
+    if not ok:
+        raise AssertionError("the demo did not learn: NoC@50 or "
+                             "AdaptiveIoU")
+    del model, initial
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    # (c) hbm_fit at its defaults; its peaks count what this process holds
+    # already (`held`)
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t = time.perf_counter()
+    _zero_counts()
+    fit = hbm_fit.main([])
+    counts = _counts()
+    times["21c"] = time.perf_counter() - t
+    bcfg = TrainConfig(model=vpu_base_config(dtype=torch.bfloat16))
+    types = [_train_noise(bcfg, torch.Generator().manual_seed(1), 1, 1, 1,
+                          r["num_iters"])["prompt_types"] for r in fit]
+    want = dict.fromkeys(counts, 0) | _scale_launches(
+        bcfg.model.backbone.depth, types)
+    got = {k: v for k, v in counts.items() if v}
+    peak3 = next(r["peak"] for r in fit if r["num_iters"] == 3) / 2 ** 30
+    ref = TRAIN_PEAK_GIB.get("phase9")
+    rel = abs(peak3 - ref) / ref if ref else None
+    rec["hbm_fit"] = {"variants": fit, "phase9_peak_gib": ref,
+                      "rel_to_phase9": rel, "held_gib": held,
+                      "launches": got}
+    table = [(r["num_iters"], r["fits"],
+              r["peak"] and round(r["peak"] / 2 ** 30, 2),
+              r["step_ms"] and round(r["step_ms"], 1)) for r in fit]
+    _log(f"  hbm_fit: {table} "
+         f"(num_iters, fits, peak GiB, step ms; {held:.2f} GiB held by "
+         f"this process before it); num_iters=3 peak "
+         f"{peak3:.2f} GiB against phase 9's "
+         f"{'not run' if ref is None else f'{ref:.2f}'} GiB"
+         f"{'' if rel is None else f' ({rel:.1%}, tol {HBM_FIT_TOL:.0%})'}"
+         f"; launches {got} expected "
+         f"{ {k: v for k, v in want.items() if v} } ({card})")
+    if not all(r["fits"] for r in fit) or counts != want:
+        raise AssertionError("hbm_fit: a variant did not fit, or the "
+                             "kernels ran other than its steps call them")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    torch.cuda.empty_cache()
+
+
+def start_rehearsal():
+    """Phase 21a, `python -m pvpuformer_tpu_torch.prepare_data rehearse`
+    (without --skip-large) into a temporary directory, started before
+    phase 19 so that its six evaluation processes run beside phases 19-21
+    (for time; nothing there is a speed claim, and no graph pool of this
+    process is large then): (the started process, the directory)."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="pvpu_rehearsal_")
+    return _start(["pvpuformer_tpu_torch.prepare_data", "rehearse", "--out",
+                   out, "--device", "cuda"], ROOT), out
+
+
+def phase_scripts(dev, card: str, rehearsal):
+    """Phase 21: the port's entry scripts. (a) the BASELINE rehearsal that
+    `start_rehearsal` started: six evaluation processes at ViT-B / L / H
+    @448 on the fixtures, each at rc 0 with its NoC row and seconds; (b)
+    the demo at its defaults, in this process: 40 epochs of the tiny f32
+    VPU, then the random, trained and trained+int8 NoC rows, with the
+    launch counts of its training steps and of each row's eager and
+    captured rounds; (c) `hbm_fit` at its defaults, in this process
+    (ViT-B@448 bf16, batch 32, num_iters 1-3), its launches and its
+    num_iters=3 peak against phase 9's; (d) `python -m
+    pvpuformer_tpu_torch.bench_loader` reduced (LOADER_BENCH), after the
+    rehearsal has ended. Prints one {"phase21": ...} JSON line; returns the
+    in-process wrapper counts."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    times, rec, total = {}, {"card": card}, {}
+    started, fixtures = rehearsal
+    try:
+        _demo_and_fit(dev, card, rec, times, total)
+        out, _ = _finish(started, "the BASELINE rehearsal",
+                         timeout=REHEARSAL_TIMEOUT)
+    finally:
+        _stop(started)
+        shutil.rmtree(fixtures, ignore_errors=True)
+    runs = _rehearsal(out)
+    times["21a"] = sum(s for _, s, _ in runs if s)
+    rec["rehearsal"] = [{"config": t, "seconds": s, "noc_row": r}
+                        for t, s, r in runs]
+    for t, s, r in runs:
+        _log(f"  rehearsal {t}: rc 0 in {s} s; {r}")
+    if len(runs) != REHEARSAL_RUNS or any(r is None for *_, r in runs) \
+            or "ALL BASELINE commands ran end-to-end" not in out:
+        raise AssertionError(f"the rehearsal ran {len(runs)} of "
+                             f"{REHEARSAL_RUNS} configurations:\n{out}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lout, times["21d"] = _subprocess(
+            ["pvpuformer_tpu_torch.bench_loader", *LOADER_BENCH, "--root",
+             tmp], ROOT, "the loader bench")
+    lines = [ln for ln in lout.splitlines()
+             if "samples/s" in ln or ln.startswith("#")]
+    rates = {ln.split()[0]: float(ln.split(":")[1].split()[0])
+             for ln in lines if "workers=" in ln}
+    rec["loader"] = {"lines": lines, "rates": rates}
+    for ln in lines:
+        _log(f"  bench_loader {ln}")
+    if set(rates) != {"thread", "process"} or \
+            not all(v > 0 for v in rates.values()):
+        raise AssertionError(f"the loader bench printed no rate of a "
+                             f"worker type:\n{lout}")
+    rec["seconds"] = dict(times, whole=time.perf_counter() - t0)
+    rec["launches"] = total
+    print(json.dumps({"phase21": rec}), flush=True)
+    _log(f"  phase 21: {rec['seconds']['whole']:.1f} s "
+         f"{ {k: round(v, 1) for k, v in times.items()} } (21a: the "
+         f"rehearsal's runs, beside phases 19-21) ({card})")
+    return total
+
+
 def _timed(phase, *args):
     """phase(*args), its wall time logged (the script's time budget)."""
     t = time.perf_counter()
@@ -5747,7 +6099,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     mm = torch.backends.cuda.matmul
-    _log(f"[1/20] environment: {smi} | torch {torch.__version__} "
+    _log(f"[1/21] environment: {smi} | torch {torch.__version__} "
          f"cuda {torch.version.cuda} | torch's precision flags as they come "
          f"(the package pins its own): cudnn.allow_tf32 "
          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
@@ -5759,7 +6111,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    _log(f"[2/20] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
+    _log(f"[2/21] build: {lib_path} in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         _log("[profile] ViT-B@448 bf16 clicks under torch.profiler, then "
              "PlainVit and the zoo families")
@@ -5770,50 +6122,50 @@ def main() -> int:
                           "card": smi}))
         return 0
 
-    _log("[3/20] kernels vs plain versions")
+    _log("[3/21] kernels vs plain versions")
     res = _timed(phase_kernels, dev)
-    _log("[4/20] model parity, tiny config f32")
+    _log("[4/21] model parity, tiny config f32")
     _timed(phase_parity, dev)
-    _log("[5/20] main path: ViT-B@448 bf16 click sessions")
+    _log("[5/21] main path: ViT-B@448 bf16 click sessions")
     launches, model = _timed(phase_main, dev, smi)
-    _log("[6/20] prompt parity, tiny config f32, four prompt variants")
+    _log("[6/21] prompt parity, tiny config f32, four prompt variants")
     _timed(phase_prompt_parity, dev)
-    _log("[7/20] prompt path: ViT-B@448 bf16 box / scribble sessions")
+    _log("[7/21] prompt path: ViT-B@448 bf16 box / scribble sessions")
     prompt_launches, _ = _timed(phase_prompts, dev, smi, model)
     for name in ("cc_labels", "component_max"):        # slice 2's path
         launches[name] = prompt_launches[name]
     del model
     graphs.clear()                  # the captured rounds' memory
     torch.cuda.empty_cache()
-    _log("[8/20] training parity, tiny config f32")
+    _log("[8/21] training parity, tiny config f32")
     _timed(phase_train_parity, dev)
-    _log("[9/20] training path: ViT-B@448 bf16 Trainer steps")
+    _log("[9/21] training path: ViT-B@448 bf16 Trainer steps")
     train_launches = _timed(phase_train, dev, smi)
     launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
     torch.cuda.empty_cache()
-    _log("[10/20] evaluation parity, tiny config f32: sequential and "
+    _log("[10/21] evaluation parity, tiny config f32: sequential and "
          "batched, CUDA vs the CPU")
     _timed(phase_eval_parity, dev)
-    _log("[11/20] batched evaluation: ViT-B@448 bf16, 21 objects x "
+    _log("[11/21] batched evaluation: ViT-B@448 bf16, 21 objects x "
          f"{EVAL_CLICKS} clicks, sequential and B = "
          f"{' / '.join(map(str, EVAL_BATCHES))}")
     _timed(phase_batched, dev, smi)
     torch.cuda.empty_cache()
     _timed(phase_graph_cache, dev, smi)
-    _log("[12/20] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
+    _log("[12/21] presets: ViT-L@448 and ViT-H@448 bf16 sessions")
     _timed(phase_presets, dev, smi)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[13/20] the training entry point: the tiny recipe and the "
+    _log("[13/21] the training entry point: the tiny recipe and the "
          "evaluation CLI as processes; tiny steps CUDA vs the CPU; the "
          "shipped recipe through the data pipeline")
     _timed(phase_entry, dev)
     _timed(phase_recipe, dev, smi)
     torch.cuda.empty_cache()
-    _log("[14/20] serving parity, tiny config f32: controller, int8 and BRS "
+    _log("[14/21] serving parity, tiny config f32: controller, int8 and BRS "
          "sessions, CUDA vs the CPU")
     _timed(phase_serving_parity, dev)
-    _log("[15/20] serving at ViT-B@448 bf16: the HTTP service, the demo, "
+    _log("[15/21] serving at ViT-B@448 bf16: the HTTP service, the demo, "
          "user clicks (bf16 and int8), f-BRS-B and RGB-BRS")
     serving = _timed(phase_serving, dev, smi)
     for name in ("fused_attention", "fused_attention_bwd", "minplus_rows",
@@ -5821,17 +6173,18 @@ def main() -> int:
         launches[name] += serving.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[16/20] model families: PlainVit ViT-B@448 and the zoo at their "
+    _log("[16/21] model families: PlainVit ViT-B@448 and the zoo at their "
          "default configs, bf16; tiny f32 parity")
     families = _timed(phase_families, dev, smi)
     for name in launches:
         launches[name] += families.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[17/20] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
-         "training, sharded batched evaluation, tensor parallelism tp and "
+    _log("[17/21] scale-out: 2 gloo ranks on the card (ViT-B@448 bf16 "
+         f"at depth {SCALE_DEPTH}: training, sharded batched evaluation, "
+         "tensor parallelism tp and "
          "tp+fsdp at M = 2), FSDP at world size 1 under NCCL (the ViT-L "
-         "recipe), evaluate --eval-mesh 1")
+         f"recipe at depth {FSDP_DEPTH}), evaluate --eval-mesh 1")
     scale = _timed(phase_scaleout, dev, smi)
     for name in launches:
         launches[name] += scale.get(name, 0)
@@ -5840,7 +6193,7 @@ def main() -> int:
     launches["fc2_partial"] = scale.get("fused_ln_mlp_tp", 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[18/20] the evaluation CLI's protocols: the launcher's command, "
+    _log("[18/21] the evaluation CLI's protocols: the launcher's command, "
          "--profile and --vis-preds as processes; the CFR cascade, "
          "--eval-ritm and --eval-mode fixed448,672 sessions at ViT-B@448 "
          "bf16")
@@ -5849,21 +6202,35 @@ def main() -> int:
         launches[name] += cli_launches.get(name, 0)
     graphs.clear()
     torch.cuda.empty_cache()
-    _log("[19/20] the int8 accuracy gate at the ViT-B/L/H widths (random "
-         "and trained weights) and reference checkpoints: the ViT-B@448 "
-         "VPU and HRNet-18s from reference-named .pth files")
-    gate_launches = _timed(phase_gate_and_reference, dev, smi)
+    rehearsal = start_rehearsal()       # phase 21a, beside phases 19-21
+    try:
+        _log("[19/21] the int8 accuracy gate at the ViT-B/L/H widths "
+             "(random and trained weights) and reference checkpoints: the "
+             "ViT-B@448 VPU and HRNet-18s from reference-named .pth files")
+        gate_launches = _timed(phase_gate_and_reference, dev, smi)
+        for name in launches:
+            launches[name] += gate_launches.get(name, 0)
+        graphs.clear()
+        torch.cuda.empty_cache()
+        _log("[20/21] the last model-side modules: caption co-training at "
+             "ViT-B@448 bf16 with the CLIP text tower, the vision-language "
+             "decoder (f32, bf16, int8), the CLIP towers from their "
+             "converters, the token shuffle forward")
+        model_launches = _timed(phase_models, dev, smi)
+        for name in launches:
+            launches[name] += model_launches.get(name, 0)
+        graphs.clear()
+        torch.cuda.empty_cache()
+        _log("[21/21] the entry scripts: the BASELINE rehearsal at ViT-B / "
+             "L / H@448 (six evaluation processes, started before phase "
+             "19), the train-then-evaluate demo, hbm_fit at batch 32 and "
+             "the on-disk loader bench")
+        script_launches = _timed(phase_scripts, dev, smi, rehearsal)
+    except BaseException:
+        _stop(rehearsal[0])
+        raise
     for name in launches:
-        launches[name] += gate_launches.get(name, 0)
-    graphs.clear()
-    torch.cuda.empty_cache()
-    _log("[20/20] the last model-side modules: caption co-training at "
-         "ViT-B@448 bf16 with the CLIP text tower, the vision-language "
-         "decoder (f32, bf16, int8), the CLIP towers from their "
-         "converters, the token shuffle forward")
-    model_launches = _timed(phase_models, dev, smi)
-    for name in launches:
-        launches[name] += model_launches.get(name, 0)
+        launches[name] += script_launches.get(name, 0)
     _log(f"whole script: {time.perf_counter() - t_script:.1f} s, of which "
          f"{TRACE_COST['seconds']:.1f} s in {TRACE_COST['windows']} "
          f"profiler windows (this process's launch checks, the traced "

@@ -59,9 +59,13 @@ import pvpuformer_tpu_torch.inference.sam_compat
 import pvpuformer_tpu_torch.gate_int8
 import pvpuformer_tpu_torch.models.zoo.clip_text
 import pvpuformer_tpu_torch.models.decoder
+import pvpuformer_tpu_torch.prepare_data, pvpuformer_tpu_torch.hbm_fit
+import pvpuformer_tpu_torch.demo_train_eval_synthetic
+import pvpuformer_tpu_torch.bench_loader
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'pvpuformer_tpu', 'triton',
-                                    'tkinter', 'demo', 'demo_widgets'))
+                                    'tkinter', 'demo', 'demo_widgets',
+                                    'scripts'))
 assert not bad, bad
 print('clean')
 """
