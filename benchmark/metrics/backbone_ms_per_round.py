@@ -1,0 +1,11 @@
+"""backbone_ms_per_round.<kind> (ms): device ms a replayed round of the
+backbone: both patch embeddings and the ViT blocks: the elapsed time
+from the round's `backbone` stage mark to the next, event-record nodes
+of the captured round (`pvpuformer_tpu_torch/utils/profiling.py`), read
+from the replays run while no profiler recorded, since a profiler
+stretches the device's clock (`_tracing.stage_ms`)."""
+from benchmark.metrics import _tracing
+
+
+def read(ctx):
+    return _tracing.stage_ms("backbone")

@@ -65,8 +65,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      its rounds make (LAUNCH CHECKS below); then
      the eager `click_scan` against `Predictor.run_clicks` from one state,
      bit-identical, with the p50 ms per click of both and the replayed
-     session's device time; `python -m pvpuformer_tpu_torch.bench` and
-     `--int8` as processes, each ending in its JSON line;
+     session's device time;
   6. prompt parity: tiny f32 box / scribble sessions, all four (prompt_mode,
      as_multi_prompts) variants with deterministic prompts, CUDA vs the CPU:
      identical clicks, IoU within 1e-5;
@@ -1313,30 +1312,7 @@ def phase_main(dev, card: str):
          f" ms/click ({card}); flash session IoU {ious3[-1]:.4f}")
     state0 = init_session(image, gt, mcfg.num_max_points, (448, 448), dev)
     _replay_vs_eager(pred, state0, CLICKS, "click path", card)
-    phase_bench()
     return total, model
-
-
-def phase_bench():
-    """Phase 5: `python -m pvpuformer_tpu_torch.bench [--int8]`, each a
-    process on the card: its last line one JSON object with the three keys
-    and the metric's name."""
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        for extra, suffix in (([], ""), (["--int8"], "_int8")):
-            out, secs = _subprocess(["pvpuformer_tpu_torch.bench", *extra],
-                                    tmp, "the bench")
-            lines = out.strip().splitlines()
-            line = json.loads(lines[-1])
-            want = f"p50_per_click_latency_ms_vitb448_gpu{suffix}"
-            ok = (set(line) == {"metric", "value", "unit"}
-                  and line["metric"] == want and line["unit"] == "ms"
-                  and np.isfinite(line["value"]) and line["value"] > 0)
-            _log(f"  python -m pvpuformer_tpu_torch.bench {' '.join(extra)}"
-                 f" in {secs:.1f} s: {lines[-2] if len(lines) > 1 else ''}"
-                 f"\n  {json.dumps(line)} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"the bench's last line: {lines[-1]}")
 
 
 def _wrappers():

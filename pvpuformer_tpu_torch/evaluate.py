@@ -38,7 +38,10 @@ is --dtype float32 with full-f32 products. The table and the pickles are
 those of the JAX CLI. --vis-preds writes one PNG per sample (its panel
 rows stacked over the clicks) under <logs-path>/vis/<dataset>/ and runs
 one session at a time; --profile times every click (percentiles, a
-histogram, the memory counters) on the sequential path. --eval-mesh D
+histogram, the memory counters) on the sequential path, and prints the
+port's round tracing (utils/profiling.py: spans, host reads a round, and
+on the card the device ms a replayed round by model stage) on either
+path. --eval-mesh D
 shares each batch of B sessions between the D ranks of a process group
 that torch.distributed.run starts (NCCL on cuda:LOCAL_RANK, gloo with
 --device cpu; B must divide by D); rank 0 prints and saves.
@@ -155,7 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="per-click latency percentiles and histogram, and "
                         "the device memory counters (sessions one at a "
-                        "time, every click timed)")
+                        "time, every click timed); the round tracing's "
+                        "report")
     p.add_argument("--shard", default=None, metavar="I/N",
                    help="evaluate shard I of N (one process each, with "
                         "--save-ious; --merge-shards reprints the table)")
@@ -362,6 +366,7 @@ def _evaluate(args, device, mesh) -> None:
     from .inference.predictor import PredictorConfig
     from .models import registry
     from .parallel import dist
+    from .utils import profiling
     from .utils.exp import load_config_file
 
     if args.parity:
@@ -411,6 +416,8 @@ def _evaluate(args, device, mesh) -> None:
                 net_clicks_limit=clicks_limit)
         vis = (VisDump(logs_dir / "vis" / name, prompt_mode=args.prompt_mode,
                        prob_thresh=args.thresh) if args.vis_preds else None)
+        if args.profile:
+            profiling.reset()
         if args.batched > 0 and vis is None:
             bev = BatchedEvaluator(ds_model, pcfg, batch_size=args.batched,
                                    device=device, int8=args.int8, mesh=mesh)
@@ -420,6 +427,8 @@ def _evaluate(args, device, mesh) -> None:
             if master:
                 print(f"throughput: {stats['objects_per_sec']:.3f} obj/s, "
                       f"{stats['clicks_per_sec']:.2f} clicks/s")
+                if args.profile:
+                    print("\n".join(profiling.report()))
         else:
             if sam_mode:
                 from .inference.sam_compat import SamCompatPredictor
@@ -434,8 +443,7 @@ def _evaluate(args, device, mesh) -> None:
                                           int8=args.int8, device=device)
             callback, recorder = vis, None
             if args.profile:
-                from .utils.profiling import LatencyRecorder
-                recorder = LatencyRecorder()
+                recorder = profiling.LatencyRecorder()
                 next_click = predictor.next_click
 
                 def timed_next_click():
@@ -451,12 +459,12 @@ def _evaluate(args, device, mesh) -> None:
             if vis is not None:
                 vis.close()
             if recorder is not None and recorder.samples_ms:
-                from .utils.profiling import memory_stats
                 print("per-click latency:", recorder.summary())
                 counts, edges = recorder.histogram(bins=10)
                 for c, lo, hi in zip(counts, edges[:-1], edges[1:]):
                     print(f"  {lo:8.2f}-{hi:8.2f} ms: {'#' * int(c)}")
-                print("memory:", memory_stats(device))
+                print("memory:", profiling.memory_stats(device))
+                print("\n".join(profiling.report()))
 
         if not master:
             continue

@@ -10,7 +10,10 @@ noise. Sessions are grouped by canvas bucket; each group's last chunk is
 padded to the batch size with copies of its last session, whose results
 are dropped. A chunk's rounds run through `graphs.click_rounds`: replayed
 from a captured round on the card, the eager `batched_click_scan`
-elsewhere.
+elsewhere. `evaluate` is traced (`utils/profiling.py`): spans
+`batched.evaluate` around `batched.sessions` (every `init_session`),
+`batched.chunk` (stack, pad, shard), `batched.read` (the gather and host
+copy of a chunk's curves, which waits for the card) and `batched.curves`.
 
 With a `mesh` (parallel/mesh.make_mesh, one rank per process), each rank
 runs B / D sessions of every chunk (rank p rows [p B / D, (p + 1) B / D),
@@ -33,6 +36,7 @@ from ..models import registry
 from ..nn import inference_model, resolve_device
 from ..parallel.dist import gather_rows
 from ..parallel.mesh import data_group, data_size, shard_batch, shard_params
+from ..utils import profiling
 from . import graphs
 from .predictor import (NOISE_SEED, PredictorConfig, SessionState,
                         init_session, stack_states)
@@ -86,45 +90,52 @@ class BatchedEvaluator:
         """Returns (per-object IoU curves in dataset order, cut at the first
         threshold crossing as `evaluate_sample` cuts them, elapsed seconds,
         stats {objects_per_sec, clicks_per_sec})."""
-        n = self.cfg.model.num_max_points
-        groups: Dict[Tuple[int, int], List[Tuple[int, SessionState]]] = {}
-        order = 0
-        for index in range(len(dataset)):
-            sample = dataset.get_sample(index)
-            canvas = self._canvas(*sample.image.shape[:2])
-            for obj_id in sample.objects_ids:
-                st = init_session(sample.image, sample.gt_mask(obj_id), n,
-                                  canvas, self.device)
-                groups.setdefault(canvas, []).append((order, st))
-                order += 1
+        with profiling.span("batched.evaluate"):
+            n = self.cfg.model.num_max_points
+            groups: Dict[Tuple[int, int], List[Tuple[int, SessionState]]] = {}
+            order = 0
+            with profiling.span("batched.sessions"):
+                for index in range(len(dataset)):
+                    sample = dataset.get_sample(index)
+                    canvas = self._canvas(*sample.image.shape[:2])
+                    for obj_id in sample.objects_ids:
+                        st = init_session(sample.image, sample.gt_mask(obj_id),
+                                          n, canvas, self.device)
+                        groups.setdefault(canvas, []).append((order, st))
+                        order += 1
 
-        curves: List = [None] * order
-        self.clicks = [None] * order
-        start = time.time()
-        total_clicks = 0
-        for items in groups.values():
-            for lo in range(0, len(items), self.batch_size):
-                chunk = items[lo:lo + self.batch_size]
-                pad = self.batch_size - len(chunk)
-                states = shard_batch(stack_states(
-                    [st for _, st in chunk] + [chunk[-1][1]] * pad),
-                    self.mesh)
-                final, ious = graphs.click_rounds(
-                    self.model, self.cfg, states, max_clicks,
-                    torch.Generator().manual_seed(NOISE_SEED))
-                pts = final.points
-                rows = gather_rows(torch.cat(
-                    [ious.float(), pts.reshape(len(pts), -1)], 1),
-                    group=data_group(self.mesh)).cpu().numpy()
-                ious = rows[:, :max_clicks]
-                pts = rows[:, max_clicks:].reshape(len(rows), -1, 3)
-                for (idx, _), curve, p in zip(chunk, ious, pts):
-                    self.clicks[idx] = p
-                    over = np.nonzero(curve[min_clicks - 1:] >= max_iou_thr)[0]
-                    k = (over[0] + min_clicks) if len(over) else max_clicks
-                    curves[idx] = curve[:k].astype(np.float32)
-                    total_clicks += k
-        elapsed = time.time() - start
+            curves: List = [None] * order
+            self.clicks = [None] * order
+            start = time.time()
+            total_clicks = 0
+            for items in groups.values():
+                for lo in range(0, len(items), self.batch_size):
+                    chunk = items[lo:lo + self.batch_size]
+                    with profiling.span("batched.chunk"):
+                        pad = self.batch_size - len(chunk)
+                        states = shard_batch(stack_states(
+                            [st for _, st in chunk] + [chunk[-1][1]] * pad),
+                            self.mesh)
+                    final, ious = graphs.click_rounds(
+                        self.model, self.cfg, states, max_clicks,
+                        torch.Generator().manual_seed(NOISE_SEED))
+                    pts = final.points
+                    with profiling.span("batched.read"):
+                        rows = gather_rows(torch.cat(
+                            [ious.float(), pts.reshape(len(pts), -1)], 1),
+                            group=data_group(self.mesh)).cpu().numpy()
+                    with profiling.span("batched.curves"):
+                        ious = rows[:, :max_clicks]
+                        pts = rows[:, max_clicks:].reshape(len(rows), -1, 3)
+                        for (idx, _), curve, p in zip(chunk, ious, pts):
+                            self.clicks[idx] = p
+                            over = np.nonzero(
+                                curve[min_clicks - 1:] >= max_iou_thr)[0]
+                            k = ((over[0] + min_clicks) if len(over)
+                                 else max_clicks)
+                            curves[idx] = curve[:k].astype(np.float32)
+                            total_clicks += k
+            elapsed = time.time() - start
         stats = {"objects_per_sec": order / max(elapsed, 1e-9),
                  "clicks_per_sec": total_clicks / max(elapsed, 1e-9)}
         return curves, elapsed, stats

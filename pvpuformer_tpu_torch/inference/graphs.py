@@ -31,6 +31,20 @@ replay makes no call, so it counts nothing; what a replay runs on the card
 shows in a profiler trace. `rounds` counts the rounds run eagerly,
 captured and replayed.
 
+Tracing (`utils/profiling.py`): the steps of a run are host spans
+(`graphs.prepare`: key, lookup, first meeting, copy-in; `graphs.eager`,
+`graphs.capture`, `graphs.replay`: the launch; `graphs.finish`: IoU
+clone, copy-out, stack), and every round reports its kind
+(`profiling.note_rounds`). A captured round carries its model stages'
+marks (`profiling.stages`: seven event-record nodes a round, the last
+after the copy into the static state). Before a graph's next replay
+rewrites them, the marks of its last replay are read if the card has
+passed them, and dropped if not: nothing waits for them. In the session
+drivers the IoU's host read has waited for every round, so each is read;
+in a batched chunk the launches run ahead of the card, so the chunk's
+last round is. While a torch profiler records, an eager round on the
+card records and reads the same marks.
+
 Graphs live in a small LRU cache (MAX_GRAPHS) and share one memory pool
 per device. No two runs overlap: one lock covers copy-in, replays and
 copy-out, and each run's stream waits for the previous run's end (an
@@ -51,10 +65,11 @@ import contextlib
 import threading
 import weakref
 from collections import OrderedDict
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import predictor as _pred
 
 # Eight graphs: on the H100 a batch-1 ViT-B@448 graph adds ~0.02 GiB to
@@ -100,6 +115,12 @@ class _Device:
         cur.wait_stream(self.stream)
         return out
 
+    @staticmethod
+    def event() -> torch.cuda.Event:
+        """A stage mark: a timing event that a capture records as an
+        event-record node of the graph."""
+        return torch.cuda.Event(enable_timing=True, external=True)
+
     def capture(self, fn, fresh: bool):
         """fn() captured into a CUDA graph on the capture stream, in the
         shared pool (a new one if `fresh`): (the graph, fn's outputs). Not
@@ -126,14 +147,25 @@ class _Device:
 
 class _Round:
     """One captured round: the graph, its static inputs (`state`, `extra`),
-    which state fields the round writes and what it returns (held so that
-    its memory stays the graph's)."""
+    which state fields the round writes, what it returns (held so that
+    its memory stays the graph's), its stage marks and the kind of its
+    last replay while that replay's marks are unread."""
 
-    def __init__(self, model, graph, state, changed, extra, out, iou):
+    def __init__(self, model, graph, state, changed, extra, out, iou, marks):
         self.model = weakref.ref(model)
         self.graph = graph
         self.state, self.changed, self.extra = state, changed, extra
         self.out, self.iou = out, iou
+        self.marks = marks
+        self.unread: Optional[str] = None
+
+    def read_marks(self) -> None:
+        """Read the last replay's stage marks if the card has passed them,
+        with no wait; the next replay records them again, so marks left
+        unread are dropped."""
+        if self.unread is not None:
+            profiling.read_stages(self.marks, self.unread, wait=False)
+            self.unread = None
 
 
 _lock = threading.Lock()
@@ -215,57 +247,90 @@ def _capture(model, key: tuple, dev: _Device, states, extra: Extra,
     new state copied into the static state."""
     state = _pred.SessionState(*(t.clone() for t in states))
     extra = {k: v.clone() for k, v in extra.items()}
+    marks = []
 
     def round_():
-        out, iou = body(state, extra)
-        for o, s in zip(out, state):
-            if o is not s:
-                s.copy_(o)
+        with profiling.stages(dev.event) as m:
+            out, iou = body(state, extra)
+            for o, s in zip(out, state):
+                if o is not s:
+                    s.copy_(o)
+        marks[:] = m
         return out, iou
     # no graph of this card left: the pool may have no holder
     fresh = all(k[-1] != key[-1] for k in _graphs)
     graph, (out, iou) = dev.capture(round_, fresh)
     changed = tuple(o is not s for o, s in zip(out, state))
-    r = _Round(model, graph, state, changed, extra, out, iou)
+    r = _Round(model, graph, state, changed, extra, out, iou, marks)
     _insert(key, r)
     rounds["captured"] += 1
+    profiling.note_rounds("captured", 0)     # the replay that follows runs it
     return r
 
 
+def _eager(dev: _Device, body: Callable, states, extra: Extra):
+    """body(states, extra) on the capture stream; while a profiler
+    records, with its stage marks, read at its end."""
+    if not profiling.tracing():
+        return dev.eager(lambda: body(states, extra))
+
+    def marked():
+        with profiling.stages(dev.event) as marks:
+            out = body(states, extra)
+        return out, marks
+    out, marks = dev.eager(marked)
+    profiling.read_stages(marks, "eager")
+    return out
+
+
 def _rounds(model, cfg, kind: str, body: Callable, states,
-            extras: Iterable[Extra]) -> Tuple[object, List[torch.Tensor]]:
+            extras: Iterable[Extra]) -> Tuple[object, torch.Tensor]:
     """One round of `body` per item of `extras` (a round's other inputs,
     made when the round is due): a key's first round eagerly, later ones
     replayed from its captured round (captured when there is none).
-    Returns (the final states, fresh tensors; each round's ious)."""
+    Returns (the final states, fresh tensors; the rounds' ious stacked
+    (B, rounds))."""
     device = states.image.device
-    key = _key(model, cfg, kind, states)
     ious = []
     with _run(device) as dev:
-        r = _lookup(key, model)
+        with profiling.span("graphs.prepare"):
+            key = _key(model, cfg, kind, states)
+            r = _lookup(key, model)
         loaded = False
         for extra in extras:
-            if r is None and _first_meeting(key):
-                states, iou = dev.eager(lambda: body(states, extra))
+            with profiling.span("graphs.prepare"):
+                first = r is None and _first_meeting(key)
+                if r is not None:
+                    r.read_marks()
+                    if not loaded:
+                        for s, t in zip(r.state, states):
+                            s.copy_(t)
+                    for k, v in r.extra.items():
+                        v.copy_(extra[k])
+            if first:
+                with profiling.span("graphs.eager"):
+                    states, iou = _eager(dev, body, states, extra)
                 rounds["eager"] += 1
+                profiling.note_rounds("eager")
                 ious.append(iou)
                 continue
             if r is None:
-                r = _capture(model, key, dev, states, extra, body)
-            else:
-                if not loaded:
-                    for s, t in zip(r.state, states):
-                        s.copy_(t)
-                for k, v in r.extra.items():
-                    v.copy_(extra[k])
+                with profiling.span("graphs.capture"):
+                    r = _capture(model, key, dev, states, extra, body)
             loaded = True
-            r.graph.replay()
+            with profiling.span("graphs.replay"):
+                r.graph.replay()
+            r.unread = "profiled" if profiling.tracing() else "replayed"
             rounds["replayed"] += 1
-            ious.append(r.iou.clone())
-        if loaded:
-            states = _pred.SessionState(*(
-                s.clone() if ch else t
-                for s, t, ch in zip(r.state, states, r.changed)))
+            profiling.note_rounds("replayed")
+            with profiling.span("graphs.finish"):
+                ious.append(r.iou.clone())
+        with profiling.span("graphs.finish"):
+            if loaded:
+                states = _pred.SessionState(*(
+                    s.clone() if ch else t
+                    for s, t, ch in zip(r.state, states, r.changed)))
+            ious = torch.stack(ious, 1)
     return states, ious
 
 
@@ -279,6 +344,7 @@ def click_rounds(model, cfg, states, num_clicks: int,
     them."""
     device = states.image.device
     if not replayed(device):
+        profiling.note_rounds("eager", num_clicks)
         return _pred.batched_click_scan(model, cfg, states, num_clicks, gen)
     if gen is None:
         gen = torch.Generator().manual_seed(_pred.NOISE_SEED)
@@ -290,8 +356,7 @@ def click_rounds(model, cfg, states, num_clicks: int,
     def body(st, noise):
         return _pred._click_step(model, cfg, st,
                                  noise if cfg.prompt_mode else None)
-    states, ious = _rounds(model, cfg, "click", body, states, draws())
-    return states, torch.stack(ious, 1)
+    return _rounds(model, cfg, "click", body, states, draws())
 
 
 def user_click_round(model, cfg, state, y: float, x: float,
@@ -305,6 +370,7 @@ def user_click_round(model, cfg, state, y: float, x: float,
              "pos": torch.full((), bool(is_positive), dtype=torch.bool,
                                device=device)}
     if not replayed(device):
+        profiling.note_rounds("eager")
         return _pred.user_click_step(model, cfg, state, click["y"],
                                      click["x"], click["pos"])
 
@@ -313,4 +379,4 @@ def user_click_round(model, cfg, state, y: float, x: float,
                                       c["pos"])
     states, ious = _rounds(model, cfg, "user", body, _pred._as_batch(state),
                            [click])
-    return _pred.session(states, 0), ious[0][0]
+    return _pred.session(states, 0), ious[0, 0]

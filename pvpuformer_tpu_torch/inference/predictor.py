@@ -39,6 +39,7 @@ from ..models.registry import forward_for
 from ..nn import inference_model, resolve_device
 from ..ops.edt import next_click_from_error, squared_edt_pair
 from ..ops.resize import roi_crop_resize, roi_paste_back
+from ..utils import profiling
 from . import graphs
 
 SCRIBBLE_CTRL = 10       # synth_scribbles' control points (prompt_sim.py:470)
@@ -609,6 +610,7 @@ def _forward_round(model: tnn.Module, cfg: PredictorConfig,
     logits = forward_for(cfg.model)(
         model, cfg.model, crop, pts, boxes=boxes, scribbles=scribbles,
         prompt_type=prompt_type, ppue_points=ppue_points)["instances"]
+    profiling.stage("output")
     if cfg.with_flip:
         logits = 0.5 * (logits[:b] + logits[b:].flip(2))
     probs = torch.sigmoid(logits.float())
@@ -692,6 +694,7 @@ def _click_step(model: tnn.Module, cfg: PredictorConfig, states: SessionState,
     forward at batch 2B (B without flip). `noise`: the round's prompt draws
     (`_draw_noise`), or None for clicks."""
     # --- 1. oracle next click (clicker.py:21-69) ---
+    profiling.stage("oracle")
     pred = states.prev_probs[..., 0] > cfg.prob_thresh
     gt_pos = states.gt == 1
     not_ignore = states.gt != -1
@@ -703,11 +706,13 @@ def _click_step(model: tnn.Module, cfg: PredictorConfig, states: SessionState,
     points, click_count = st.points, st.click_count
 
     # --- 2. forward, with the optional CFR cascade (base.py:59-72) ---
+    profiling.stage("input")
     probs, roi, has_roi = _forward_round(model, cfg, st, points, st.prev_probs,
                                          noise)
     if cfg.cascade_step > 1:
         active = click_count <= cfg.cascade_clicks
         for _ in range(cfg.cascade_step - 1):
+            profiling.stage("input")
             nxt = torch.where(active[:, None, None, None],
                               _forward_round(model, cfg, st, points, probs,
                                              noise)[0], probs)
@@ -763,6 +768,7 @@ def _user_click_step(model: tnn.Module, cfg: PredictorConfig,
                      states: SessionState, y: torch.Tensor, x: torch.Tensor,
                      is_positive: torch.Tensor):
     """`user_click_step` on a batch of one session: (states, ious (1,))."""
+    profiling.stage("input")
     states = _put_user_click(states, is_positive.reshape(1),
                              y.to(torch.int32).reshape(1),
                              x.to(torch.int32).reshape(1))
@@ -815,7 +821,10 @@ class Predictor:
     a CPU generator seeded NOISE_SEED. Rounds run through `graphs`: on the
     card replayed from a round captured per shape (the counterpart of
     JAX's per-shape compile cache) once a shape's first round has run
-    eagerly; on the CPU eagerly."""
+    eagerly; on the CPU eagerly. Its calls are traced
+    (`utils/profiling.py`): spans `predictor.set_input`, `predictor.round`
+    and, inside a round, `predictor.read`, the host read that waits for
+    the card."""
 
     def __init__(self, model: tnn.Module, cfg: PredictorConfig, device=None,
                  int8: bool = False):
@@ -832,22 +841,24 @@ class Predictor:
         return (-(-h // b) * b, -(-w // b) * b)
 
     def set_input(self, image: np.ndarray, gt_mask: np.ndarray):
-        lls = self.cfg.limit_longest_side
-        if lls and max(image.shape[:2]) > lls:
-            from PIL import Image as PILImage
-            scale = lls / max(image.shape[:2])
-            nh = max(1, int(round(image.shape[0] * scale)))
-            nw = max(1, int(round(image.shape[1] * scale)))
-            image = np.asarray(PILImage.fromarray(
-                np.ascontiguousarray(image)).resize((nw, nh),
-                                                    PILImage.BILINEAR))
-            gt_mask = np.asarray(PILImage.fromarray(
-                gt_mask.astype(np.int32), mode="I").resize(
-                    (nw, nh), PILImage.NEAREST))
-        self.state = init_session(image, gt_mask, self.cfg.model.num_max_points,
-                                  self._canvas(*image.shape[:2]), self.device)
-        self.gen.manual_seed(NOISE_SEED)
-        self._undo = []
+        with profiling.span("predictor.set_input"):
+            lls = self.cfg.limit_longest_side
+            if lls and max(image.shape[:2]) > lls:
+                from PIL import Image as PILImage
+                scale = lls / max(image.shape[:2])
+                nh = max(1, int(round(image.shape[0] * scale)))
+                nw = max(1, int(round(image.shape[1] * scale)))
+                image = np.asarray(PILImage.fromarray(
+                    np.ascontiguousarray(image)).resize((nw, nh),
+                                                        PILImage.BILINEAR))
+                gt_mask = np.asarray(PILImage.fromarray(
+                    gt_mask.astype(np.int32), mode="I").resize(
+                        (nw, nh), PILImage.NEAREST))
+            self.state = init_session(
+                image, gt_mask, self.cfg.model.num_max_points,
+                self._canvas(*image.shape[:2]), self.device)
+            self.gen.manual_seed(NOISE_SEED)
+            self._undo = []
 
     def _scan(self, num_clicks: int):
         st, ious = graphs.click_rounds(self.model, self.cfg,
@@ -858,9 +869,11 @@ class Predictor:
     @torch.no_grad()
     def next_click(self) -> float:
         """One oracle-driven round; returns IoU."""
-        self._undo.append(self.state)
-        self.state, ious = self._scan(1)
-        return float(ious[0])
+        with profiling.span("predictor.round"):
+            self._undo.append(self.state)
+            self.state, ious = self._scan(1)
+            with profiling.span("predictor.read"):
+                return float(ious[0])
 
     @torch.no_grad()
     def user_click(self, y: float, x: float, is_positive: bool) -> float:
@@ -868,17 +881,21 @@ class Predictor:
         IoU against the session's gt (0 for a gt-less demo session). Grad
         mode is off, whatever the calling thread's: the undo stack keeps
         the states, which must not hold a forward's autograd graph."""
-        self._undo.append(self.state)
-        self.state, iou = graphs.user_click_round(
-            self.model, self.cfg, self.state, y, x, is_positive)
-        return float(iou)
+        with profiling.span("predictor.round"):
+            self._undo.append(self.state)
+            self.state, iou = graphs.user_click_round(
+                self.model, self.cfg, self.state, y, x, is_positive)
+            with profiling.span("predictor.read"):
+                return float(iou)
 
     @torch.no_grad()
     def run_clicks(self, num_clicks: int) -> np.ndarray:
         """`num_clicks` rounds; returns the IoU curve (one host read)."""
-        self._undo.append(self.state)
-        self.state, ious = self._scan(num_clicks)
-        return ious.cpu().numpy()
+        with profiling.span("predictor.round"):
+            self._undo.append(self.state)
+            self.state, ious = self._scan(num_clicks)
+            with profiling.span("predictor.read"):
+                return ious.cpu().numpy()
 
     def undo_click(self) -> None:
         if self._undo:

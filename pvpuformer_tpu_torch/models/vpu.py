@@ -28,6 +28,7 @@ import torch
 from torch import nn as tnn
 
 from .. import nn
+from ..utils import profiling
 from ..ops.distmaps import dist_maps
 from ..ops.ppue import PPuEConfig, ppue_box, ppue_click, ppue_scribble
 from ..ops.rasterize import draw_box_into_coords, draw_scribble_into_coords
@@ -250,7 +251,9 @@ def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
     rgb, prev_mask = prepare_input(p, cfg, image)
     coords = coord_features(cfg, rgb, prev_mask, points, boxes, scribbles,
                             prompt_type, coord_bias)
+    profiling.stage("backbone")
     tokens = vpu_backbone_embed(p, cfg, rgb, coords, shuffle_noise)
+    profiling.stage("neck")
     ppts = points if ppue_points is None else ppue_points
     if prompt_type == 0:
         pv = ppue_click(ppts, cfg.ppue, num_max_points=cfg.num_max_points)
@@ -262,6 +265,7 @@ def vpu_forward(p: VPUModel, cfg: VPUConfig, image: torch.Tensor,
     ms_feats, q_out = neck_forward(p.neck, cfg.neck, tokens, pv.to(cfg.dtype),
                                    cfg.backbone.grid_size,
                                    caption_queries(p, cfg, captions))
+    profiling.stage("head")
     seg, pcl = head_forward(p.head, cfg.head, ms_feats, q_out)
     h, w = image.shape[1], image.shape[2]
     aux = None

@@ -226,8 +226,8 @@ def _latency(out: str):
 def test_profile_matches_jax(tmp_path, ckpt, monkeypatch, capsys):
     """--profile times every click on the per-click path: the summary's
     keys, a count equal to the clicks run, a 10-bin histogram, a memory
-    line (no CUDA device on the CPU), and the curves of the run without
-    --profile."""
+    line (no CUDA device on the CPU), the round tracing's report, and the
+    curves of the run without --profile."""
     argv = ["--profile", "--save-ious"] + common(ckpt, limit=2)
     want = run_jax(argv, tmp_path / "jax", monkeypatch, capsys)
     got = run_port(argv, tmp_path / "port", capsys)
@@ -249,5 +249,10 @@ def test_profile_matches_jax(tmp_path, ckpt, monkeypatch, capsys):
     assert len(hist) == len(jhist) == 10
     assert sum(ln.count("#") for ln in hist) == s["count"]
     assert mem == ["memory: {}"] and len(jmem) == 1
+    # the round tracing's report: every round eager on the CPU, one host
+    # read a round
+    assert f"spans [eager]: {s['count']} rounds, 1.00 host reads a round" \
+        in got.splitlines()
+    assert "spans [" not in plain
     with open(tmp_path / "port" / name, "rb") as f:
         assert pickle.load(f)["n_clicks"] == CLICKS

@@ -18,6 +18,7 @@ in the same order). The card's own replays are held against eager rounds
 in tests/test_torch_cuda.py and chip_smoke.py."""
 import contextlib
 import dataclasses
+import time
 
 import pytest
 import torch
@@ -57,9 +58,27 @@ class _Replay:
         minplus.launches = n
 
 
+class CpuEvent:
+    """A stage mark on the CPU: the host clock when it was recorded (each
+    replay of the stand-in records its marks again)."""
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def query(self) -> bool:
+        return True
+
+    def elapsed_time(self, other) -> float:
+        return (other.t - self.t) * 1e3
+
+
 class CpuDevice:
     """`graphs._Device` on the CPU: no streams, a capture that records the
-    round as a function."""
+    round as a function, host-clock stage marks."""
+    event = CpuEvent
 
     def __init__(self, device):
         self.device = device
